@@ -8,15 +8,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      cover_vla_tpu_torch/csrc with nvcc (sm_90a);
   2. kernels: each CUDA kernel against its plain PyTorch twin on the card
      in bf16 at the main path's shapes and at ragged ones (max abs error
-     <= 2e-2), timed beside the twin and one PyTorch library call;
-  3. small reference: the port's eager step on tiny configs with fp32
-     weights, on the card against the same step on the CPU;
-  4. main path at full width: pi0 (PaliGemma-3B + Gemma-300M expert +
-     SigLIP so400m) and the SigLIP2 ViT-L/16-384 verifier with 3 members,
-     random weights from a seed, through make_verified_step_batched under
-     the fast configs (kernels) and the eager configs: E=16 episodes x
-     N=16 candidates, and the reference 5x8 protocol at E=1. Launch
-     counts, output checks, fast-vs-eager agreement, step times.
+     <= 2e-2; the prefill kernel's fp32 result <= 1e-4), timed beside the
+     twin and one PyTorch library call;
+  3. small reference: the port's eager step, and a lockstep evaluation of
+     two fake-env episodes, on tiny configs with fp32 weights, on the card
+     against the same on the CPU;
+  4. the verified step at full width: pi0 (PaliGemma-3B + Gemma-300M
+     expert + SigLIP so400m) and the SigLIP2 ViT-L/16-384 verifier with 3
+     members, random weights from a seed, through
+     make_verified_step_batched under the fast configs (decode and tower
+     kernels), the all-kernel configs (the prefill kernel too) and the
+     eager configs: E=16 episodes x N=16 candidates, and the reference
+     5x8 protocol at E=1. Launch counts, output checks, kernel-vs-eager
+     agreement, step times;
+  5. closed-loop evaluation at full width under the all-kernel configs,
+     5x8 protocol over the fake environment: evaluate_suite_batched with 4
+     lockstep episodes, the same pipelined over two cohorts, one
+     CoVerEvaluator episode through CoVerEngine, and the injected-score
+     mode against the fused step.
 The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -34,13 +43,20 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
 KERNEL_TOL = 2e-2
-# Fast (kernels) vs eager executed actions at full width. The JAX
-# package's own fast-vs-exact bound is rtol 0.1 / atol 0.05
+# K3 keeps its probabilities in fp32: its fp32 result must agree with the
+# twin's far more closely than a bf16-rounded p would (checked both ways)
+K3_FP32_TOL = 1e-4
+# Kernel configs vs eager actions at full width. The JAX package's own
+# fast-vs-exact bound is rtol 0.1 / atol 0.05
 # (tests/test_pallas_attention.py:169-171). On the H100 the largest
-# deviation was 1.6e-3 (E=16 x N=16) and 1.4e-3 (5x8), so the bound is
-# tightened to 1e-2 absolute, a 6x margin; a flipped gripper sign
-# (deviation 2) fails either bound.
+# deviation over all candidates was 2.3e-3 (E=16 x N=16) and 1.6e-3 (5x8),
+# so the bound is tightened to 1e-2 absolute, a 4x margin; a flipped
+# gripper sign (deviation 2) fails either bound. The configs' scores
+# deviated by at most 1.1e-2 (bf16 tower attention); the score bound is a
+# fixed 2.5e-2, about 2.3x that, and it also bounds the eager score gap
+# across which the all-kernel config may pick another candidate.
 FAST_RTOL, FAST_ATOL = 0.0, 1e-2
+SCORE_ATOL = 2.5e-2
 STEP_REPEATS = 10
 
 
@@ -156,6 +172,92 @@ def k2_work(args):
     return nbytes(q, k, v) + nbytes(q), float(4 * b * h * s * k.shape[1] * d)
 
 
+def k3_inputs(torch, gen, dev, b, sq, skv, hq, hkv, d, n_valid,
+              causal=False):
+    """Prefill-style inputs: key j of batch row i is real when
+    j < n_valid[i], or lo <= j < hi where n_valid[i] is a (lo, hi) window;
+    with sq == skv the same holds for the query rows, so
+    mask = pad[:, None, :] & pad[:, :, None] and padding rows are fully
+    masked. `causal` also masks the keys after the query's position (the
+    last query sits on the last key), so that with a window every real row
+    meets whole tiles of masked keys ahead of its first real key."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    pad = torch.zeros((b, skv), dtype=torch.bool, device=dev)
+    for i in range(b):
+        valid = n_valid[i % len(n_valid)]
+        lo, hi = valid if isinstance(valid, tuple) else (0, valid)
+        pad[i, lo:hi] = True
+    qpad = pad if sq == skv else torch.ones((b, sq), dtype=torch.bool,
+                                            device=dev)
+    mask = pad[:, None, :] & qpad[:, :, None]
+    if causal:
+        pos = torch.arange(skv, device=dev)
+        mask = mask & (pos[None, :] <= pos[-sq:, None])
+    mask = mask.contiguous()
+    return rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d), mask
+
+
+def k3_work(args):
+    """Bytes once (bf16 result) and the operations of the attended
+    (query, key) pairs of this run's mask."""
+    q, k, v, mask = args
+    hq, d = q.shape[2], q.shape[3]
+    return nbytes(*args) + nbytes(q), float(4 * hq * d * mask.sum().item())
+
+
+def k3_library(torch, F, args):
+    """Yardstick: SDPA with the bool mask over K/V expanded to the query
+    heads. Returns (fn, its inputs, ms to build them)."""
+    q, k, v, mask = args
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+
+    def build():
+        def heads(x):
+            return x[:, :, :, None].expand(b, skv, hkv, hq // hkv, d).reshape(
+                b, skv, hq, d).transpose(1, 2).contiguous()
+        return q.transpose(1, 2).contiguous(), heads(k), heads(v), mask[:, None]
+
+    built = build()
+    expand_ms = time_ms(torch, build, [()], 5)
+    return (lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mm)), built, expand_ms
+
+
+def k3_fp32_check(torch, name, ca, args, separates=True):
+    """K3's fp32 result against the twin's, and beside it what rounding p
+    to bf16 (K1/K2's rounding point, which K3 must not have) would cost;
+    with `separates` that cost must lie above the bound."""
+    from cover_vla_tpu_torch.ops.attention import BIG_NEG
+    q, k, v, mask = args
+    f32 = torch.float32
+    got = ca.prefix_gqa(*args, out_dtype=f32)
+    ref = ca.prefix_gqa_plain(*args, out_dtype=f32)
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    sc = torch.einsum("bqhgd,bkhd->bhgqk",
+                      q.float().reshape(b, sq, hkv, hq // hkv, d), k.float())
+    sc = torch.where(mask[:, None, None], sc * d ** -0.5, BIG_NEG)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    p_bf = p.to(torch.bfloat16).float()
+    rounded = (torch.einsum("bhgqk,bkhd->bqhgd", p_bf, v.float())
+               / p_bf.sum(-1).permute(0, 3, 1, 2)[..., None]).reshape(ref.shape)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    err_rounded = (rounded - ref).abs().max().item()
+    if not math.isfinite(err) or err > K3_FP32_TOL:
+        raise AssertionError(f"{name} fp32: max abs error {err} > {K3_FP32_TOL}")
+    if separates and err_rounded <= K3_FP32_TOL:
+        raise AssertionError(
+            f"{name} fp32: a bf16-rounded p deviates only {err_rounded}, "
+            f"so the bound {K3_FP32_TOL} does not separate the two")
+    log(f"kernel {name} fp32 result: max_abs_err={err:.3e} (bound "
+        f"{K3_FP32_TOL:.0e}); the same product with p rounded to bf16 "
+        f"deviates {err_rounded:.3e}")
+
+
 def check_and_time(torch, card, name, kernel, twin, inputs_fn, work_fn,
                    library_fn, iters):
     """Compare kernel vs twin on one shape; time kernel, twin, library."""
@@ -186,6 +288,7 @@ def check_and_time(torch, card, name, kernel, twin, inputs_fn, work_fn,
 def kernel_phase(torch, card, dev):
     import torch.nn.functional as F
     from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.ops.attention import gqa_attention
 
     gen = torch.Generator(device=dev).manual_seed(0)
     k2_lib = (lambda a: (
@@ -193,16 +296,38 @@ def kernel_phase(torch, card, dev):
         tuple(x.transpose(1, 2).contiguous() for x in a), 0.0))
     # prefix of the bench's prompts: 256 image tokens + 12 of 72 language
     # tokens valid (the rest padded)
+    # (cohort: the episode path's 4 lockstep episodes x 8 rephrases)
     k1_main = dict(bench=(16, 16, 5, 8, 1, 256, 328, [268]),
-                   protocol=(8, 5, 5, 8, 1, 256, 328, [268]))
+                   protocol=(8, 5, 5, 8, 1, 256, 328, [268]),
+                   cohort=(32, 5, 5, 8, 1, 256, 328, [268]))
     k1_extra = dict(ragged=(3, 7, 5, 8, 2, 256, 77, [77, 40, 1]))
     # per control step at E=16: so400m 27 layers, ViT-L 24, text 24
     k2_main = dict(so400m=((16, 256, 16, 72), 27),
                    vit_l16_384=((16, 576, 16, 64), 24),
                    text=((16, 64, 16, 64), 24))
+    # the towers at the episode path's 4 lockstep episodes
+    k2_cohort = {f"{tag}_cohort": (4, *shape[1:])
+                 for tag, (shape, _) in k2_main.items()}
     k2_extra = dict(ragged_s300=(2, 300, 4, 64), ragged_s37=(3, 37, 2, 72))
 
-    results = {"shared_prefix_gqa": {}, "mha_dense": {}}
+    # prefill of the bench's prompts (B = E*K = 16), of the 5x8 protocol
+    # (B = 8) and of the episode path's cohort (B = 4*8 = 32): 328 prefix
+    # tokens, 268 of them real
+    k3_main = dict(bench=(16, 328, 328, 8, 1, 256, [268]),
+                   protocol=(8, 328, 328, 8, 1, 256, [268]),
+                   cohort=(32, 328, 328, 8, 1, 256, [268]))
+    # leading_masked: windows of real keys under a causal mask, so one to
+    # three whole 32-key tiles of masked keys come before a row's first
+    # real key and the running maximum has to wipe what they collected
+    k3_extra = dict(ragged=(2, 200, 200, 8, 2, 128, [163, 200]),
+                    one_query=(3, 1, 77, 8, 1, 256, [77, 40, 1]),
+                    d16=(2, 64, 64, 4, 1, 16, [56, 9]),
+                    leading_masked=(3, 200, 200, 8, 2, 128,
+                                    [(40, 163), (100, 200), (0, 200)], True),
+                    leading_masked_d256=(2, 5, 328, 8, 1, 256,
+                                         [(70, 268), (33, 328)], True))
+
+    results = {"shared_prefix_gqa": {}, "mha_dense": {}, "prefix_gqa": {}}
     for tag, shape in {**k1_main, **k1_extra}.items():
         results["shared_prefix_gqa"][tag] = check_and_time(
             torch, card, f"shared_prefix_gqa[{tag}]", ca.shared_prefix_gqa,
@@ -210,15 +335,32 @@ def kernel_phase(torch, card, dev):
             lambda shape=shape: k1_inputs(torch, gen, dev, *shape),
             k1_work, lambda a: k1_library(torch, F, a), iters=50)
     for tag, shape in {**{k: v[0] for k, v in k2_main.items()},
-                       **k2_extra}.items():
+                       **k2_cohort, **k2_extra}.items():
         results["mha_dense"][tag] = check_and_time(
             torch, card, f"mha_dense[{tag}]", ca.mha_dense,
             ca.mha_dense_plain,
             lambda shape=shape: k2_inputs(torch, gen, dev, *shape),
             k2_work, k2_lib, iters=50)
+    for tag, shape in {**k3_main, **k3_extra}.items():
+        results["prefix_gqa"][tag] = check_and_time(
+            torch, card, f"prefix_gqa[{tag}]", ca.prefix_gqa,
+            ca.prefix_gqa_plain,
+            lambda shape=shape: k3_inputs(torch, gen, dev, *shape),
+            k3_work, lambda a: k3_library(torch, F, a), iters=50)
+        if tag in k3_main or tag.startswith("leading_masked"):
+            k3_fp32_check(torch, f"prefix_gqa[{tag}]", ca,
+                          k3_inputs(torch, gen, dev, *shape),
+                          separates=tag in k3_main)
+        if tag in k3_main:
+            # what the prefill runs without K3: the eager masked GQA
+            args = [k3_inputs(torch, gen, dev, *shape) for _ in range(2)]
+            log(f"kernel prefix_gqa[{tag}]: eager gqa_attention on the same "
+                f"inputs {time_ms(torch, gqa_attention, args, 20):.4f} ms "
+                f"| {card}")
     # main-path launches per control step at E=16, per shape
     per_step = {"shared_prefix_gqa": {"bench": 180},
-                "mha_dense": {k: v[1] for k, v in k2_main.items()}}
+                "mha_dense": {k: v[1] for k, v in k2_main.items()},
+                "prefix_gqa": {"bench": 18}}
     return results, per_step
 
 
@@ -261,6 +403,21 @@ def check_result(torch, res, e, k, n, chunk):
     assert set(res.verifier_chunk[..., 6].unique().tolist()) <= {0.0, 1.0}
 
 
+def recording_env_class():
+    """FakeWidowXEnv that keeps the actions it was stepped with."""
+    from cover_vla_tpu_torch.eval.fake_env import FakeWidowXEnv
+
+    class RecordingEnv(FakeWidowXEnv):
+        def reset(self, seed=None):
+            self.actions = []
+            return super().reset(seed=seed)
+
+        def step(self, action):
+            self.actions.append(np.array(action, np.float64))
+            return super().step(action)
+    return RecordingEnv
+
+
 def small_reference_phase(torch, dev):
     """Tiny configs, fp32 weights, eager path: card vs CPU."""
     from cover_vla_tpu_torch.configs import (
@@ -271,6 +428,7 @@ def small_reference_phase(torch, dev):
     from cover_vla_tpu_torch.models import pi0, verifier
     from cover_vla_tpu_torch.models.params import ParamTree
 
+    RecordingEnv = recording_env_class()
     pcfg, vcfg = tiny_pi0_config(), tiny_verifier_config()
     ccfg = CoVerConfig(n_samples=2, n_rephrases=2)
     stats = DatasetStatistics.from_json()
@@ -295,6 +453,44 @@ def small_reference_phase(torch, dev):
     assert dev_max <= 1e-4, dev_max
     log(f"small reference: card vs CPU, tiny fp32 eager step, "
         f"max float deviation {dev_max:.3e} (bound 1e-4), discrete outputs equal")
+
+    # the same for a lockstep evaluation: 2 fake-env episodes, 8 ticks,
+    # the same noise handed to both devices' step functions
+    from cover_vla_tpu_torch.data.tokenizer import HashTokenizer
+    from cover_vla_tpu_torch.engine import BatchedCoVerEngine, evaluate_batched
+    from cover_vla_tpu_torch.eval.adapters import BridgeSimplerAdapter
+    from cover_vla_tpu_torch.eval.rephrase import load_rephrases
+
+    ticks = 8
+    noises = np.random.default_rng(2).standard_normal(
+        (ticks // pcfg.chunk_size, 2, 2, 2, pcfg.chunk_size,
+         pcfg.max_action_dim)).astype(np.float32)
+    runs = {}
+    for d in ("cpu", dev):
+        step = make_verified_step_batched(pcfg, vcfg, ccfg, stats, device=d)
+        it = iter(noises)
+        engine = BatchedCoVerEngine(
+            ParamTree(fp32(pp, d)), ParamTree(fp32(vp, d)), pcfg, vcfg, ccfg,
+            num_episodes=2, stats=stats, rephrases=load_rephrases(),
+            policy_tokenizer=HashTokenizer(pcfg.paligemma.vocab_size),
+            verifier_tokenizer=HashTokenizer(vcfg.text.vocab_size,
+                                             add_bos=False),
+            device=d,
+            step_fn=lambda *a, generator=None, _s=step, _it=it: _s(
+                *a, noise=next(_it)))
+        envs = [RecordingEnv("widowx_carrot_on_plate", max_steps=ticks)
+                for _ in range(2)]
+        out = evaluate_batched(engine, envs, BridgeSimplerAdapter(stats=stats),
+                               max_steps=ticks, seeds=[0, 1])
+        runs[str(d)] = (out, np.stack([np.stack(e.actions) for e in envs]))
+    (out_c, act_c), (out_g, act_g) = runs["cpu"], runs[str(dev)]
+    for key in ("success", "steps", "selected_instructions"):
+        assert out_c[key] == out_g[key], (key, out_c[key], out_g[key])
+    ev_dev = float(np.abs(act_c - act_g).max())
+    assert act_g.shape == (2, ticks, 7) and ev_dev <= 1e-4, ev_dev
+    log(f"small reference: card vs CPU, evaluate_batched over the fake env "
+        f"(2 episodes x {ticks} ticks), max action deviation {ev_dev:.3e} "
+        f"(bound 1e-4), success/steps/selected_instructions equal")
 
 
 def profile_step(torch, card, cell, run):
@@ -326,36 +522,102 @@ def profile_step(torch, card, cell, run):
         log(f"  {t_us / 1e3:9.3f} ms  {count:6d}x  {name[:90]}")
 
 
-def main_path_phase(torch, card, dev, pcfg, vcfg, cells):
-    """Drive make_verified_step_batched for each cell {name: (E, CoVerConfig)}
-    under the fast and the eager configs. Returns the launch counts of the
-    first cell's counted fast step."""
-    from cover_vla_tpu_torch.configs import (
-        fast_pi0_config, fast_verifier_config)
-    from cover_vla_tpu_torch.data.stats import DatasetStatistics
-    from cover_vla_tpu_torch.engine.verified_step import (
-        make_verified_step_batched)
+def init_full_width(torch, dev, pcfg, vcfg):
     from cover_vla_tpu_torch.models import pi0, verifier
-    from cover_vla_tpu_torch.ops import cuda_attention as ca
-
-    # kernel launches per step: K1 once per expert layer per Euler step,
-    # K2 once per layer of the three towers (180 and 75 at full width)
-    expected = {
-        "shared_prefix_gqa": pcfg.expert.depth * pcfg.num_denoise_steps,
-        "mha_dense": pcfg.vision.depth + vcfg.vision.depth + vcfg.text.depth}
-    stats = DatasetStatistics.from_json()
     t0 = time.perf_counter()
     pp = pi0.init_pi0(0, pcfg, device=dev)
     vp = verifier.init_verifier(1, vcfg, num_members=3, device=dev)
     torch.cuda.synchronize()
     n_params = (sum(p.numel() for p in pp.parameters()),
                 sum(p.numel() for p in vp.parameters()))
-    log(f"main path: random weights, policy {n_params[0] / 1e9:.3f}B + "
+    log(f"full width: random weights, policy {n_params[0] / 1e9:.3f}B + "
         f"verifier {n_params[1] / 1e9:.3f}B params, init "
         f"{time.perf_counter() - t0:.1f}s")
+    return pp, vp
 
-    attn = {"fast": (fast_pi0_config(pcfg), fast_verifier_config(vcfg)),
+
+def kernel_configs(pcfg, vcfg):
+    """{name: (Pi0Config, VerifierConfig)}: fast (decode and tower
+    kernels), all_kernel (the prefill kernel too), eager."""
+    from cover_vla_tpu_torch.configs import (
+        fast_pi0_config, fast_verifier_config, replace)
+    fast_v = fast_verifier_config(vcfg)
+    return {"fast": (fast_pi0_config(pcfg), fast_v),
+            "all_kernel": (replace(fast_pi0_config(pcfg),
+                                   attention_impl="cuda"), fast_v),
             "eager": (pcfg, vcfg)}
+
+
+def launches_per_step(pcfg, vcfg):
+    """Kernel launches of one verified step under the all-kernel configs:
+    K1 once per expert layer per Euler step, K2 once per layer of the
+    three towers, K3 once per prefill layer (180, 75 and 18 at full
+    width)."""
+    return {"shared_prefix_gqa": pcfg.expert.depth * pcfg.num_denoise_steps,
+            "mha_dense": (pcfg.vision.depth + vcfg.vision.depth
+                          + vcfg.text.depth),
+            "prefix_gqa": pcfg.paligemma.depth}
+
+
+def compare_with_eager(torch, name, f, fc, x, xc, strict):
+    """A kernel config's step result `f` and candidates `fc` against the
+    eager config's `x`, `xc`.
+
+    Every one of the K*N candidates of every episode must agree (the
+    policy half, independent of which candidate is picked) and the scores
+    must agree within SCORE_ATOL. `strict` (the fast config): every
+    episode's winner equals eager's and every executed chunk agrees.
+    Otherwise (the all-kernel config): with random weights the candidates'
+    scores lie close together (eager top-2 gaps down to 1e-4 against score
+    deviations of 1e-2 between the configs), so a pick may differ, but only
+    between candidates whose eager scores lie within the fixed SCORE_ATOL
+    of each other; executed chunks must agree wherever the picks do."""
+    cand_dev = (fc.exec_chunks[..., :6] - xc.exec_chunks[..., :6]
+                ).abs().max().item()
+    grip_dev = (fc.raw_grippers - xc.raw_grippers).abs().max().item()
+    score_dev = (f.scores - x.scores).abs().max().item()
+    same = f.winner_idx == x.winner_idx
+    agree = same.float().mean().item()
+    if cand_dev > FAST_ATOL or grip_dev > 2 * FAST_ATOL:
+        raise AssertionError(f"{name}: candidates deviate {cand_dev} "
+                             f"(raw gripper {grip_dev}) from eager")
+    if score_dev > SCORE_ATOL:
+        raise AssertionError(f"{name}: scores deviate {score_dev} from eager "
+                             f"(bound {SCORE_ATOL})")
+    rows = torch.arange(len(same), device=same.device)
+    gap = (x.scores[rows, x.winner_idx.long()]
+           - x.scores[rows, f.winner_idx.long()])[~same]
+    if strict and not same.all():
+        raise AssertionError(f"{name}: winners {f.winner_idx.tolist()} differ "
+                             f"from eager's {x.winner_idx.tolist()}")
+    if (gap.abs() > SCORE_ATOL).any():
+        raise AssertionError(f"{name}: picks differ from eager across score "
+                             f"gaps {gap.tolist()} (bound {SCORE_ATOL})")
+    torch.testing.assert_close(f.exec_chunk[same], x.exec_chunk[same],
+                               rtol=FAST_RTOL, atol=FAST_ATOL)
+    act_dev = ((f.exec_chunk[same] - x.exec_chunk[same]).abs().max().item()
+               if same.any() else 0.0)
+    log(f"{name} vs eager: all candidates max |action| dev {cand_dev:.3e}, "
+        f"raw gripper dev {grip_dev:.3e}, max |score| dev {score_dev:.3e} "
+        f"(bound {SCORE_ATOL}), winner agreement {agree:.3f} ({len(same)} "
+        f"episodes; eager score gaps of the differing picks "
+        f"{[f'{g:.1e}' for g in gap.tolist()]}), executed chunks of the "
+        f"agreeing episodes dev {act_dev:.3e}")
+
+
+def main_path_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
+    """Drive make_verified_step_batched for each cell {name: (E, CoVerConfig)}
+    under the fast, all-kernel and eager configs. Returns the launch counts
+    of the first cell's counted all-kernel step."""
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_propose_step_batched, make_verified_step_batched)
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    expected = {"all_kernel": launches_per_step(pcfg, vcfg)}
+    expected["fast"] = {**expected["all_kernel"], "prefix_gqa": 0}
+    stats = DatasetStatistics.from_json()
+    attn = kernel_configs(pcfg, vcfg)
     launches = None
     first_cell = next(iter(cells))
     for cell, (e, ccfg) in cells.items():
@@ -363,14 +625,16 @@ def main_path_phase(torch, card, dev, pcfg, vcfg, cells):
         noise = torch.from_numpy(noise_np).to(dev)
         steps = {a: make_verified_step_batched(pc, vc, ccfg, stats, device=dev)
                  for a, (pc, vc) in attn.items()}
-        # one counted run of the main path per cell
-        ca.reset_launch_counts()
-        res = {"fast": steps["fast"](pp, vp, *inputs, noise=noise)}
-        torch.cuda.synchronize()
-        counts = dict(ca.launch_counts)
-        if counts != expected:
-            raise AssertionError(f"{cell}: launch counts {counts}, expected "
-                                 f"{expected} per step")
+        # one counted run of the step per cell and kernel config
+        res = {}
+        for a in ("fast", "all_kernel"):
+            ca.reset_launch_counts()
+            res[a] = steps[a](pp, vp, *inputs, noise=noise)
+            torch.cuda.synchronize()
+            counts = dict(ca.launch_counts)
+            if counts != expected[a]:
+                raise AssertionError(f"{cell} {a}: launch counts {counts}, "
+                                     f"expected {expected[a]} per step")
         if launches is None:
             launches = counts
         res["eager"] = steps["eager"](pp, vp, *inputs, noise=noise)
@@ -378,20 +642,19 @@ def main_path_phase(torch, card, dev, pcfg, vcfg, cells):
         for r in res.values():
             check_result(torch, r, e, ccfg.n_rephrases, ccfg.n_samples,
                          pcfg.chunk_size)
-        f, x = res["fast"], res["eager"]
-        act_dev = (f.exec_chunk - x.exec_chunk).abs().max().item()
-        score_dev = (f.scores - x.scores).abs().max().item()
-        agree = (f.winner_idx == x.winner_idx).float().mean().item()
-        torch.testing.assert_close(f.exec_chunk, x.exec_chunk,
-                                   rtol=FAST_RTOL, atol=FAST_ATOL)
-        log(f"{cell}: launches {counts}; fast vs eager: max |exec_chunk| dev "
-            f"{act_dev:.3e}, max |score| dev {score_dev:.3e}, winner "
-            f"agreement {agree:.3f} ({e} episodes)")
+        raw, proprio, lt, lm, _, hist, hlen = inputs
+        cands = {a: make_propose_step_batched(pc, vc, ccfg, stats, device=dev)(
+            pp, raw, proprio, lt, lm, hist, hlen, noise=noise)
+            for a, (pc, vc) in attn.items()}
+        x, xc = res["eager"], cands["eager"]
+        for a in ("fast", "all_kernel"):
+            compare_with_eager(torch, f"{cell}: launches {expected[a]}; {a}",
+                               res[a], cands[a], x, xc, strict=a == "fast")
         if cell == first_cell:
             profile_step(torch, card, cell, lambda: steps["fast"](
                 pp, vp, *inputs, noise=noise))
         times = {a: [] for a in steps}
-        for _ in range(STEP_REPEATS):       # the two configs in turns
+        for _ in range(STEP_REPEATS):       # the three configs in turns
             for a, step in steps.items():
                 t0 = time.perf_counter()
                 step(pp, vp, *inputs, noise=noise)
@@ -404,6 +667,184 @@ def main_path_phase(torch, card, dev, pcfg, vcfg, cells):
                 f"{e * pcfg.chunk_size / p50:.2f}, peak mem "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
     return launches
+
+
+def episode_phase(torch, card, dev, pcfg, vcfg, pp, vp):
+    """Closed-loop evaluation at full width under the all-kernel configs:
+    the reference 5x8 protocol over the fake environment, 12 ticks = 3
+    verified steps per episode."""
+    from cover_vla_tpu_torch.configs import CoVerConfig, replace
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.data.tokenizer import HashTokenizer
+    from cover_vla_tpu_torch.engine import BatchedCoVerEngine, CoVerEngine
+    from cover_vla_tpu_torch.engine.verified_step import _verifier_image
+    from cover_vla_tpu_torch.eval.adapters import BridgeSimplerAdapter
+    from cover_vla_tpu_torch.eval.evaluator import (
+        CoVerEvaluator, EvalConfig, evaluate_suite_batched)
+    from cover_vla_tpu_torch.eval.fake_env import get_image_from_obs_dict
+    from cover_vla_tpu_torch.eval.rephrase import load_rephrases
+    from cover_vla_tpu_torch.models import verifier
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    RecordingEnv = recording_env_class()
+    pc, vc = kernel_configs(pcfg, vcfg)["all_kernel"]
+    ccfg = CoVerConfig(n_samples=5, n_rephrases=8)
+    stats = DatasetStatistics.from_json()
+    rephrases = load_rephrases()
+    per_step = launches_per_step(pcfg, vcfg)
+    chunk, n_par, ticks = pcfg.chunk_size, 4, 12
+    task = "widowx_carrot_on_plate"
+    toks = dict(policy_tokenizer=HashTokenizer(pcfg.paligemma.vocab_size),
+                verifier_tokenizer=HashTokenizer(vcfg.text.vocab_size,
+                                                 add_bos=False))
+
+    def counted(name, verified_steps, fn):
+        """Run fn with the launch counts reset; check them against
+        `verified_steps` steps of the all-kernel path."""
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ca.launch_counts)
+        want = {k: v * verified_steps for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"{name}: launch counts {counts}, expected "
+                                 f"{want} ({verified_steps} verified steps)")
+        return out, wall, counts
+
+    def check_actions(name, envs, n_ticks):
+        acts = np.stack([np.stack(env.actions) for env in envs])
+        assert acts.shape == (len(envs), n_ticks, 7), (name, acts.shape)
+        assert np.isfinite(acts).all(), name
+        assert set(np.unique(acts[..., 6])) <= {-1.0, 1.0}, name
+
+    def report(name, wall, n_ticks, n_actions, counts):
+        log(f"episodes {name}: wall {wall:.2f} s, {n_ticks / wall:.2f} "
+            f"ticks/s, {n_actions / wall:.2f} verified actions/s, launches "
+            f"{counts} | {card}")
+
+    # (a) suite evaluation, one cohort of 4 lockstep episodes --------------
+    def run_suite(trials, pipelined):
+        envs = []
+
+        def env_fn(t):
+            envs.append(RecordingEnv(t))
+            return envs[-1]
+        cfg = EvalConfig(task_suite="simpler_carrot_on_plate",
+                         num_trials_per_task=trials, max_steps=ticks)
+        out = evaluate_suite_batched(
+            pp, vp, pc, vc, ccfg, cfg, n_parallel=n_par, env_fn=env_fn,
+            stats=stats, rephrases=rephrases, pipelined=pipelined, seed=0,
+            device=dev, **toks)
+        return out, envs
+
+    for name, trials, pipelined in (("batched", n_par, False),
+                                    ("pipelined", 2 * n_par, True)):
+        cohorts = trials // n_par
+        (out, envs), wall, counts = counted(
+            name, cohorts * ticks // chunk,
+            lambda: run_suite(trials, pipelined))
+        summary = out["summary"]
+        per_task = summary["per_task"][task]
+        assert summary["total_episodes"] == per_task["episodes"] == trials
+        assert 0.0 <= summary["overall_success_rate"] <= 1.0
+        assert [ep["num_steps"] for ep in per_task["per_episode"]] == \
+            [ticks] * trials
+        assert all(len(ep["selected_instructions"]) == ticks // chunk
+                   for ep in per_task["per_episode"])
+        check_actions(name, envs, ticks)
+        report(f"{name} ({trials} episodes, {cohorts} cohort(s) of {n_par})",
+               wall, cohorts * ticks, trials * ticks, counts)
+        if not pipelined:
+            first = per_task["per_episode"]
+        else:
+            # cohort A shares its engine seed and env seeds with (a)
+            same = [a["selected_instructions"] == b["selected_instructions"]
+                    for a, b in zip(first, per_task["per_episode"])]
+            log(f"episodes pipelined: cohort A repeats the batched run's "
+                f"selected instructions in {sum(same)}/{len(same)} episodes")
+
+    # (b) one episode through CoVerEvaluator / CoVerEngine ------------------
+    engine = CoVerEngine(pp, vp, pc, vc, ccfg, stats=stats,
+                         rephrases=rephrases, seed=0, device=dev, **toks)
+    envs = []
+
+    def env_fn(t):
+        envs.append(RecordingEnv(t))
+        return envs[-1]
+    evaluator = CoVerEvaluator(
+        engine, EvalConfig(task_suite="simpler_carrot_on_plate",
+                           num_trials_per_task=1, max_steps=ticks),
+        env_fn=env_fn, stats=stats)
+    out, wall, counts = counted("single", ticks // chunk, evaluator.evaluate)
+    ep = out["episodes"][0]
+    assert out["summary"]["total_episodes"] == 1 and ep.num_steps == ticks
+    assert len(ep.verifier_scores) == ticks // chunk
+    assert np.isfinite(ep.verifier_scores).all()
+    check_actions("single", envs, ticks)
+    report("single (CoVerEvaluator, 1 episode)", wall, ticks, ticks, counts)
+
+    # (c) injected-score selection with the verifier's own scores must
+    # execute the fused step's chunk; and how long step_async holds the
+    # host before it returns ------------------------------------------------
+    envs = [RecordingEnv(task) for _ in range(n_par)]
+    obs = [env.reset(seed=i)[0] for i, env in enumerate(envs)]
+    tasks = [env.get_language_instruction() for env in envs]
+    adapter = BridgeSimplerAdapter(stats=stats)
+    imgs = np.stack([get_image_from_obs_dict(env, o)
+                     for env, o in zip(envs, obs)])
+    props = np.stack([adapter.preprocess_proprio({"agent": o["agent"]})
+                      for o in obs]).astype(np.float32)
+
+    def make_engine(selection, score_fn=None):
+        eng = BatchedCoVerEngine(
+            pp, vp, pc, vc, replace(ccfg, selection=selection),
+            num_episodes=n_par, stats=stats, rephrases=rephrases, seed=3,
+            score_fn=score_fn, device=dev, **toks)
+        eng.reset(tasks)
+        return eng
+
+    vtoks, _ = toks["verifier_tokenizer"].encode_batch(
+        tasks, vc.text.context_length)
+
+    @torch.no_grad()
+    def verifier_scores(exec_chunks, proposal):
+        """The fused step's stages 6: scores of all candidates under the
+        current instruction, [E, K*N]."""
+        traj = proposal.trajectories
+        vimg = _verifier_image(torch.from_numpy(imgs).to(dev),
+                               vc.vision.image_size)
+        feats = verifier.extract_features(
+            vp, vc, vimg, torch.from_numpy(vtoks).to(dev).long())
+        fused_it, fused_ac = verifier.ensemble_embed(
+            vp, vc, feats, traj.reshape(-1, *traj.shape[2:]))
+        return torch.einsum("ed,ecd->ec", fused_it, fused_ac.reshape(
+            traj.shape[0], traj.shape[1], -1)).cpu().numpy()
+
+    fused = make_engine("verifier")
+    t0 = time.perf_counter()
+    resolve = fused.step_async(imgs, props)
+    t1 = time.perf_counter()
+    first_action = resolve()
+    t2 = time.perf_counter()
+    log(f"episodes step_async (E={n_par}, 5x8): returned after "
+        f"{(t1 - t0) * 1e3:.2f} ms of host work, resolver waited "
+        f"{(t2 - t1) * 1e3:.2f} ms | {card}")
+    chunks = {"fused": [first_action] + [fused.step(imgs, props)
+                                         for _ in range(chunk - 1)]}
+    injected = make_engine("injected", verifier_scores)
+    (acts, wall, counts) = counted(
+        "injected", 1,
+        lambda: [injected.step(imgs, props) for _ in range(chunk)])
+    chunks["injected"] = acts
+    inj_dev = float(np.abs(np.stack(chunks["injected"])
+                           - np.stack(chunks["fused"])).max())
+    assert injected.selected_instructions == fused.selected_instructions
+    assert inj_dev <= 1e-6, inj_dev
+    log(f"episodes injected: propose + verifier scores + select executes the "
+        f"fused step's chunk (max deviation {inj_dev:.1e}, E={n_par}), "
+        f"launches {counts}")
 
 
 def main() -> int:
@@ -433,16 +874,26 @@ def main() -> int:
     small_reference_phase(torch, dev)
     # phase 4: main path -------------------------------------------------
     from cover_vla_tpu_torch.configs import CoVerConfig, Pi0Config, VerifierConfig
+    pcfg, vcfg = Pi0Config(), VerifierConfig()
+    pp, vp = init_full_width(torch, dev, pcfg, vcfg)
     launches = main_path_phase(
-        torch, card, dev, Pi0Config(), VerifierConfig(),
+        torch, card, dev, pcfg, vcfg, pp, vp,
         {"E16_N16_K1": (16, CoVerConfig(n_samples=16, n_rephrases=1)),
          "E1_N5_K8": (1, CoVerConfig(n_samples=5, n_rephrases=8))})
-    if launches != {"shared_prefix_gqa": 180, "mha_dense": 75}:
+    if launches != {"shared_prefix_gqa": 180, "mha_dense": 75,
+                    "prefix_gqa": 18}:
         raise AssertionError(f"full-width launch counts {launches}")
+    # phase 5: closed-loop evaluation --------------------------------------
+    episode_phase(torch, card, dev, pcfg, vcfg, pp, vp)
 
     replaces = {
-        "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:134",
-        "mha_dense": "cover_vla_tpu/ops/pallas_attention.py:269"}
+        "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",
+        "mha_dense": "cover_vla_tpu/ops/pallas_attention.py:270",
+        "prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:314"}
+    sources = {
+        "shared_prefix_gqa": "cover_vla_tpu_torch/csrc/attention.cu",
+        "mha_dense": "cover_vla_tpu_torch/csrc/attention.cu",
+        "prefix_gqa": "cover_vla_tpu_torch/csrc/prefix_attention.cu"}
     kernels = []
     for name, shapes in per_step.items():
         total = {key: sum(results[name][tag][key] * n
@@ -451,7 +902,7 @@ def main() -> int:
         bound_by = max(shapes, key=lambda tag: results[name][tag]["bound_ms"] * shapes[tag])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "cover_vla_tpu_torch/csrc/attention.cu",
+            "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name].values()),
             **total, "bound_by": results[name][bound_by]["bound_by"],

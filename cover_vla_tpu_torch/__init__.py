@@ -5,6 +5,9 @@ The same modules and function names as the JAX package, in PyTorch:
 parameters in the same layout (`models/params.ParamTree`), an explicit
 device at every entry point (CUDA unless the caller passes another), and
 hand-written Hopper kernels in `csrc/` where the JAX package had Pallas
-kernels (`ops/cuda_attention.py`). This slice covers the episode-batched
-verified control step (`engine/verified_step.py`).
+kernels (`ops/cuda_attention.py`). Ported so far: the episode-batched
+verified control step (`engine/verified_step.py`) and the closed-loop
+evaluation path over it (`engine/cover_engine.py`,
+`engine/batched_engine.py`, `eval/evaluator.py` and the fake environment,
+adapters and tokenizers they need).
 """

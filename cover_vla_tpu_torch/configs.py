@@ -151,8 +151,8 @@ class Pi0Config:
     # sinusoidal time embedding periods
     time_min_period: float = 4e-3
     time_max_period: float = 4.0
-    # prefill/decode attention backend: "eager" or "cuda". The prefill has
-    # no kernel yet (gemma.prefill raises for "cuda").
+    # prefill/decode attention backend: "eager" or "cuda" (the prefill
+    # then runs kernel K3, the decode kernel K1)
     attention_impl: str = "eager"
     # decode (shared-prefix expert) backend; "" = inherit attention_impl
     decode_attn_impl: str = ""
@@ -274,7 +274,9 @@ def replace(cfg, **kw):
 
 def fast_pi0_config(cfg: Pi0Config) -> Pi0Config:
     """Max-throughput variant: the dense flash kernel for the vision tower
-    and the shared-prefix decode kernel. Prefill stays eager."""
+    and the shared-prefix decode kernel. Prefill stays eager;
+    `replace(fast_pi0_config(cfg), attention_impl="cuda")` is the
+    all-kernel configuration, whose prefill runs kernel K3."""
     return replace(cfg, decode_attn_impl="cuda", fast_math=True,
                    vision=replace(cfg.vision, attn_impl="cuda",
                                   fast_math=True))

@@ -1,4 +1,4 @@
-"""Dataset statistics (bound normalisation bounds).
+"""Dataset statistics and normalisation (bound / gaussian).
 
 The vendored ``bridge_statistics.json`` beside this file is dataset
 metadata (p01/p99/mean/std over 2.19M Bridge transitions), the same file
@@ -55,3 +55,26 @@ class DatasetStatistics:
             num_transitions=int(raw.get("num_transitions", 0)),
             num_trajectories=int(raw.get("num_trajectories", 0)),
         )
+
+
+# normalisation math on numpy arrays (the host adapters) ---------------------
+
+
+def normalize_bound(data, data_min, data_max, clip_min=-1.0, clip_max=1.0,
+                    eps=1e-8):
+    ndata = 2 * (data - data_min) / (data_max - data_min + eps) - 1
+    return np.clip(ndata, clip_min, clip_max)
+
+
+def denormalize_bound(data, data_min, data_max, clip_min=-1.0, clip_max=1.0,
+                      eps=1e-8):
+    clip_range = clip_max - clip_min
+    return (data - clip_min) / clip_range * (data_max - data_min) + data_min
+
+
+def normalize_gaussian(data, mean, std, eps=1e-8):
+    return (data - mean) / (std + eps)
+
+
+def denormalize_gaussian(data, mean, std, eps=1e-8):
+    return data * (std + eps) + mean

@@ -19,6 +19,10 @@ argument has a leading E axis):
      score >= threshold, else the best candidate of the group-mean-best
      language group) and the phase-aware deference gate;
   8. gripper majority vote within the winning language group.
+
+Stages 1-5 are also exposed alone (`make_propose_step_batched`) with the
+selection half over an externally supplied score vector
+(`make_select_step_batched`): the injected-score selection mode.
 """
 
 from __future__ import annotations
@@ -143,44 +147,32 @@ def _as(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
-                               ccfg: CoVerConfig, stats: DatasetStatistics,
-                               device=None):
-    """Episode-batched verified step on `device` (CUDA unless given):
+class ProposeResult(NamedTuple):
+    exec_chunks: torch.Tensor      # [E, K*N, chunk, 7] execution-format candidates
+    verifier_chunks: torch.Tensor  # [E, K*N, chunk, 7] verifier-format candidates
+    trajectories: torch.Tensor     # [E, K*N, history_length, 7] verifier trajs
+    raw_grippers: torch.Tensor     # [E, K*N, chunk, 1] raw [0,1] gripper outputs
 
-        step(policy_params, verifier_params, raw_image, proprio,
-             lang_tokens, lang_masks, verifier_tokens, history,
-             history_len, noise=None, generator=None) -> VerifiedStepResult
 
-    raw_image uint8[E, H, W, 3]; proprio fp32[E, 7] (raw euler format);
-    lang_tokens/lang_masks [E, K, T] (row 0 = current task);
-    verifier_tokens int[E, Tv]; history fp32[E, max_history, 7] (valid
-    entries in the last history_len rows); history_len int[E].
-    noise fp32[E, K, N, chunk, max_action_dim] is the flow's starting
-    point; when absent it is drawn from `generator` (times noise_std).
-    Arrays may be numpy or tensors; they are moved to `device`.
-    """
+def _make_propose(pcfg: Pi0Config, vcfg: VerifierConfig, ccfg: CoVerConfig,
+                  stats: DatasetStatistics, dev: torch.device):
+    """Stages 1-5 on `dev`, shared by the fused step and the propose step:
+    propose(policy_params, raw_image, proprio, lang_tokens, lang_masks,
+    history, history_len, noise, generator) -> ProposeResult. raw_image and
+    proprio must already be tensors on `dev`."""
     if ccfg.max_history + pcfg.chunk_size != vcfg.history_length:
         raise ValueError(
             f"verifier history_length ({vcfg.history_length}) must equal "
             f"max_history ({ccfg.max_history}) + chunk_size ({pcfg.chunk_size})")
-    if ccfg.selection not in ("verifier", "random", "first"):
-        raise ValueError(f"unknown selection mode {ccfg.selection!r}")
-    dev = resolve_device(device)
     f32 = torch.float32
     a_p01, a_p99 = _as(stats.action.p01, dev, f32), _as(stats.action.p99, dev, f32)
     p_p01 = _as(stats.proprio.p01, dev, f32)
     p_p99 = _as(stats.proprio.p99, dev, f32)
     K, N = ccfg.n_rephrases, ccfg.n_samples
 
-    @torch.no_grad()
-    def step(policy_params: ParamTree, verifier_params: ParamTree,
-             raw_image, proprio, lang_tokens, lang_masks, verifier_tokens,
-             history, history_len, noise: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None
-             ) -> VerifiedStepResult:
-        raw_image = _as(raw_image, dev)
-        proprio = _as(proprio, dev, f32)
+    def propose(policy_params: ParamTree, raw_image: torch.Tensor,
+                proprio: torch.Tensor, lang_tokens, lang_masks, history,
+                history_len, noise, generator) -> ProposeResult:
         lang_tokens = _as(lang_tokens, dev, torch.long)
         lang_masks = _as(lang_masks, dev, torch.bool)
         history = _as(history, dev, f32)
@@ -221,6 +213,51 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
         traj = assemble_trajectories(verif_chunks, history, history_len,
                                      ccfg.max_history,
                                      vcfg.action_padding_value)
+        return ProposeResult(exec_chunks, verif_chunks, traj, grip)
+
+    return propose
+
+
+def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
+                               ccfg: CoVerConfig, stats: DatasetStatistics,
+                               device=None):
+    """Episode-batched verified step on `device` (CUDA unless given):
+
+        step(policy_params, verifier_params, raw_image, proprio,
+             lang_tokens, lang_masks, verifier_tokens, history,
+             history_len, noise=None, generator=None) -> VerifiedStepResult
+
+    raw_image uint8[E, H, W, 3]; proprio fp32[E, 7] (raw euler format);
+    lang_tokens/lang_masks [E, K, T] (row 0 = current task);
+    verifier_tokens int[E, Tv]; history fp32[E, max_history, 7] (valid
+    entries in the last history_len rows); history_len int[E].
+    noise fp32[E, K, N, chunk, max_action_dim] is the flow's starting
+    point; when absent it is drawn from `generator` (times noise_std).
+    Arrays may be numpy or tensors; they are moved to `device`.
+    """
+    if ccfg.selection not in ("verifier", "random", "first"):
+        raise ValueError(f"unknown selection mode {ccfg.selection!r} "
+                         "(the 'injected' mode uses make_propose_step "
+                         "+ make_select_step)")
+    dev = resolve_device(device)
+    f32 = torch.float32
+    propose = _make_propose(pcfg, vcfg, ccfg, stats, dev)
+    K, N = ccfg.n_rephrases, ccfg.n_samples
+
+    @torch.no_grad()
+    def step(policy_params: ParamTree, verifier_params: ParamTree,
+             raw_image, proprio, lang_tokens, lang_masks, verifier_tokens,
+             history, history_len, noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> VerifiedStepResult:
+        raw_image = _as(raw_image, dev)
+        proprio = _as(proprio, dev, f32)
+        E = raw_image.shape[0]
+
+        # 1-5. preprocess, sample, decode, assemble trajectories ----------
+        exec_chunks, verif_chunks, traj, grip = propose(
+            policy_params, raw_image, proprio, lang_tokens, lang_masks,
+            history, history_len, noise, generator)
 
         # 6-7. verifier scoring and selection -----------------------------
         deferred = torch.zeros(E, dtype=torch.bool, device=dev)
@@ -280,6 +317,72 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
             raw_gripper=grip[rows, winner, :, 0])
 
     return step
+
+
+def make_propose_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
+                              ccfg: CoVerConfig, stats: DatasetStatistics,
+                              device=None):
+    """Episode-batched candidate proposal, the first half of the
+    injected-score selection mode:
+
+        propose(policy_params, raw_image, proprio, lang_tokens, lang_masks,
+                history, history_len, noise=None, generator=None)
+            -> ProposeResult
+
+    with the verified step's argument shapes. It runs stages 1-5 and
+    returns ALL candidates, so that an external scorer (a privileged
+    oracle, a remote model, a replayed score vector) can rank them;
+    selection then runs through `make_select_step_batched`, the code the
+    verifier arm uses."""
+    dev = resolve_device(device)
+    propose = _make_propose(pcfg, vcfg, ccfg, stats, dev)
+
+    @torch.no_grad()
+    def step(policy_params: ParamTree, raw_image, proprio, lang_tokens,
+             lang_masks, history, history_len,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> ProposeResult:
+        return propose(policy_params, _as(raw_image, dev),
+                       _as(proprio, dev, torch.float32), lang_tokens,
+                       lang_masks, history, history_len, noise, generator)
+
+    return step
+
+
+def make_select_step_batched(ccfg: CoVerConfig, device=None):
+    """Episode-batched injected-score selection: the two-stage gate, the
+    group-mean language selection and the gripper vote of the verifier
+    arm, applied to externally supplied scores.
+
+        select(scores [E, K*N], exec_chunks, verif_chunks, raw_grippers)
+            -> VerifiedStepResult   (deferred is all False)
+    """
+    dev = resolve_device(device)
+    N = ccfg.n_samples
+
+    @torch.no_grad()
+    def select(scores, exec_chunks, verif_chunks,
+               raw_grippers) -> VerifiedStepResult:
+        scores = _as(scores, dev, torch.float32)
+        exec_chunks = _as(exec_chunks, dev, torch.float32)
+        verif_chunks = _as(verif_chunks, dev, torch.float32)
+        raw_grippers = _as(raw_grippers, dev, torch.float32)
+        winner, max_score, used_stage2 = select_from_scores(
+            scores, N, ccfg.rescore_threshold)
+        rows = torch.arange(scores.shape[0], device=dev)
+        exec_chunk = exec_chunks[rows, winner]
+        winner_group = winner // N
+        if ccfg.gripper_vote:
+            exec_chunk = vote_gripper(exec_chunks, exec_chunk, winner_group, N)
+        return VerifiedStepResult(
+            exec_chunk=exec_chunk, verifier_chunk=verif_chunks[rows, winner],
+            winner_idx=winner.to(torch.int32),
+            winner_group=winner_group.to(torch.int32),
+            max_score=max_score, used_stage2=used_stage2,
+            deferred=torch.zeros_like(used_stage2), scores=scores,
+            raw_gripper=raw_grippers[rows, winner, :, 0])
+
+    return select
 
 
 def make_verified_step(pcfg: Pi0Config, vcfg: VerifierConfig,

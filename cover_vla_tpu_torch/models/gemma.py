@@ -5,6 +5,7 @@ reference package, and the layer loop is a Python loop. Decode uses a
 shared-prefix KV cache: all N candidates of a batch row attend one copy of
 the row's prefix keys/values; the softmax runs jointly over
 [prefix | own suffix] scores in fp32 (eager) or inside kernel K1 ("cuda").
+The prefill's attention is eager or kernel K3 ("cuda").
 
 Numerics: weights bf16, the residual stream in the weights' dtype,
 RMSNorm/softmax/RoPE in fp32.
@@ -107,12 +108,21 @@ def prefill(pg_params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
     """
     if attn_impl not in ATTN_BACKENDS:
         raise ValueError(f"unknown attention backend {attn_impl!r}")
-    if attn_impl == "cuda":
-        raise NotImplementedError(
-            "the prefill attention kernel (masked prefix-LM GQA) is not "
-            "ported yet; use attention_impl='eager'")
     layers = pg_params["layers"]
     dtype = layers["q"].dtype
+    if attn_impl == "cuda":
+        # kernel K3, once per layer: bf16 operands, the mask made
+        # contiguous once; fp32 weights get the kernel's fp32 result
+        from cover_vla_tpu_torch.ops.cuda_attention import prefix_gqa
+        kmask = mask.contiguous()
+        bf = torch.bfloat16
+
+        def attend(q, k, v):
+            return prefix_gqa(q.to(bf).contiguous(), k.to(bf).contiguous(),
+                              v.to(bf).contiguous(), kmask, out_dtype=dtype)
+    else:
+        def attend(q, k, v):
+            return gqa_attention(q, k, v, mask)
     h = prefix_emb.to(dtype)
     b, p_len = h.shape[:2]
     shape = (cfg.depth, b, p_len, cfg.num_kv_heads, cfg.head_dim)
@@ -123,7 +133,7 @@ def prefill(pg_params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
         q, k, v = _qkv(layer, cfg, h, positions)
         cache["k"][i] = k
         cache["v"][i] = v
-        h = _post_attention(layer, cfg, h, gqa_attention(q, k, v, mask))
+        h = _post_attention(layer, cfg, h, attend(q, k, v))
     if return_hidden:
         return rms_norm(h, pg_params["final_norm"], cfg.rms_eps), cache
     return None, cache

@@ -1,11 +1,14 @@
-"""Hand-written CUDA attention kernels (``csrc/attention.cu``), their plain
-PyTorch twins, and launch counters.
+"""Hand-written CUDA attention kernels (``csrc/``), their plain PyTorch
+twins, and launch counters.
 
   K1 `shared_prefix_gqa` — candidate-suffix decode attention of the action
      expert over [shared prefix KV cache | own suffix]. Replaces
      cover_vla_tpu/ops/pallas_attention.py:pallas_shared_prefix_gqa.
   K2 `mha_dense` — mask-free multi-head attention of the SigLIP towers.
      Replaces cover_vla_tpu/ops/pallas_attention.py:pallas_mha_dense.
+  K3 `prefix_gqa` — masked prefix-LM GQA of the PaliGemma prefill, with
+     fp32 probabilities. Replaces
+     cover_vla_tpu/ops/pallas_attention.py:pallas_prefix_gqa.
 
 Each wrapper takes the kernel for tensors on a CUDA device and the plain
 twin for tensors on the CPU; there is no fallback from one to the other.
@@ -14,7 +17,7 @@ inputs rounded to bf16, fp32 scores and softmax, probabilities rounded to
 bf16 before the PV product, and division by the sum of the rounded
 probabilities at the end. (The kernels take their running maximum over
 key tiles, the twins over the whole row, so p can round one bf16 ulp
-apart.)
+apart.) K3 keeps its probabilities in fp32 (see `prefix_gqa_plain`).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from cover_vla_tpu_torch.ops.attention import BIG_NEG
 
 # launches of each kernel since the last reset (CPU twin calls not counted)
-launch_counts = {"shared_prefix_gqa": 0, "mha_dense": 0}
+launch_counts = {"shared_prefix_gqa": 0, "mha_dense": 0, "prefix_gqa": 0}
 
 
 def reset_launch_counts() -> None:
@@ -171,4 +174,65 @@ def mha_dense(q, k, v) -> torch.Tensor:
     _run(lib.cvla_mha_dense, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          out.data_ptr(), b, sq, skv, h, d, d ** -0.5, stream)
     launch_counts["mha_dense"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: masked prefix-LM GQA (prefill), fp32 probabilities
+# ---------------------------------------------------------------------------
+
+
+def prefix_gqa_plain(q, k, v, mask, out_dtype=None) -> torch.Tensor:
+    """Plain twin of K3. q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D]
+    (Hq % Hkv == 0); mask: bool[B, Sq, Skv], True = attend. Returns
+    [B, Sq, Hq*D] in `out_dtype` (v.dtype when None).
+
+    Inputs rounded to bf16, fp32 scores scaled by D**-0.5, masked scores
+    set to BIG_NEG, an fp32 softmax over the whole row, fp32 probabilities
+    times fp32-upcast V. A query row whose keys are all masked (a padding
+    row) is a uniform softmax: the mean of V over the Skv keys, as the
+    eager `gqa_attention` gives. (The kernel feeds p to the tensor cores as
+    bf16(p) + bf16(p - bf16(p)), which differs from fp32 p by at most
+    2^-18 of p.)"""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    bf = torch.bfloat16
+    q32 = q.to(bf).float().reshape(b, sq, hkv, hq // hkv, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q32, k.to(bf).float())
+    scores = torch.where(mask[:, None, None], scores * (d ** -0.5), BIG_NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(bf).float())
+    return out.reshape(b, sq, hq * d).to(out_dtype or v.dtype)
+
+
+def prefix_gqa(q, k, v, mask, out_dtype=None) -> torch.Tensor:
+    """K3 (shapes as in `prefix_gqa_plain`). On CUDA q/k/v must be
+    contiguous bf16 with a head dim that is a multiple of 8, at most 256,
+    and mask contiguous bool; `out_dtype` is bfloat16 (None) or float32."""
+    if not _route("prefix_gqa", q.device):
+        return prefix_gqa_plain(q, k, v, mask, out_dtype)
+    bf = torch.bfloat16
+    _check_cuda_inputs("prefix_gqa", dict(q=q, k=k, v=v, mask=mask),
+                       dict(q=bf, k=bf, v=bf, mask=torch.bool))
+    out_dtype = out_dtype or bf
+    _check(out_dtype in (bf, torch.float32),
+           f"out_dtype {out_dtype} (bfloat16 or float32)")
+    _check(q.ndim == 4 and k.ndim == 4,
+           f"q/k shapes {tuple(q.shape)}/{tuple(k.shape)}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    _check(k.shape == (b, skv, hkv, d) and v.shape == k.shape,
+           f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} for q {tuple(q.shape)}")
+    _check(hkv > 0 and hq % hkv == 0, f"{hq} query heads over {hkv} kv heads")
+    _check(mask.shape == (b, sq, skv), f"mask {tuple(mask.shape)}")
+    _check(d % 8 == 0 and d <= 256, f"head dim {d} (multiple of 8, <= 256)")
+    _check(sq > 0 and skv > 0, "no queries or no keys")
+    from cover_vla_tpu_torch import _build
+    lib = _build.load().lib
+    out = torch.empty((b, sq, hq * d), dtype=out_dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _run(lib.cvla_prefix_gqa, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         mask.data_ptr(), out.data_ptr(), b, sq, skv, hkv, hq // hkv, d,
+         d ** -0.5, int(out_dtype == torch.float32), stream)
+    launch_counts["prefix_gqa"] += 1
     return out

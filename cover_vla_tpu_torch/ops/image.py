@@ -1,6 +1,7 @@
 """Image preprocessing ops on the device — channels-last [B, H, W, C].
 
-  * `resize_lanczos4_uint8_device`: cv2.resize(uint8, INTER_LANCZOS4),
+  * `resize_lanczos4_uint8_device` (and its host numpy twin
+    `resize_lanczos4_uint8`): cv2.resize(uint8, INTER_LANCZOS4),
     bit-exact (cv2's fixed-point tap tables, integer accumulation,
     rounding shift and saturation). It uses gather-multiply-sum, because
     the card has no integer matrix product in PyTorch.
@@ -96,6 +97,23 @@ def _lanczos4_fixed_tables(src: int, dst: int):
     idx = np.clip(sx[:, None] + np.arange(8)[None, :] - 3,
                   0, src - 1).astype(np.int32)
     return idx, quant
+
+
+def resize_lanczos4_uint8(img: np.ndarray, height: int,
+                          width: int) -> np.ndarray:
+    """Host (numpy) cv2.resize(uint8, INTER_LANCZOS4), bit-exact: the same
+    fixed-point coefficients, integer accumulation, rounding shift and
+    saturation as cv2's 8-bit path. img: uint8[H, W, C]."""
+    h, w = img.shape[:2]
+    if (h, w) == (height, width):
+        return img
+    xi, xc = _lanczos4_fixed_tables(w, width)
+    yi, yc = _lanczos4_fixed_tables(h, height)
+    src = img.astype(np.int64)
+    tmp = (src[:, xi, :] * xc[None, :, :, None]).sum(2)      # [h, W', C]
+    acc = (tmp[yi, :, :] * yc[:, :, None, None]).sum(1)      # [H', W', C]
+    out = (acc + (1 << 21)) >> 22
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def resize_lanczos4_uint8_device(img: torch.Tensor, height: int,

@@ -11,7 +11,7 @@ from cover_vla_tpu.models import gemma as jgemma
 from cover_vla_tpu.ops import attention as jatt
 from cover_vla_tpu.ops.masks import make_att_2d_masks, suffix_att_masks
 from cover_vla_tpu.ops.pallas_attention import (
-    pallas_mha_dense, pallas_shared_prefix_gqa)
+    pallas_mha_dense, pallas_prefix_gqa, pallas_shared_prefix_gqa)
 
 from cover_vla_tpu_torch.models import gemma
 from cover_vla_tpu_torch.ops import attention, cuda_attention
@@ -135,6 +135,84 @@ def test_mha_dense_twin_matches_pallas(b, s, h, d):
     np.testing.assert_allclose(_np(t32), _np(twin), atol=1e-2, rtol=0)
 
 
+def _prefix_inputs(rng, b, sq, skv, hq, hkv, d, n_pad, windows=None):
+    """Trailing padding of `n_pad` keys in the last batch row; or, with
+    `windows`, real keys lo <= j < hi per batch row under a causal mask
+    (the last query on the last key), so that whole blocks of masked keys
+    come before a row's first real key."""
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    pad = np.ones((b, skv), bool)
+    if windows is None:
+        pad[-1, skv - n_pad:] = False
+    else:
+        pad[:] = False
+        for i, (lo, hi) in enumerate(windows):
+            pad[i, lo:hi] = True
+    qpad = pad if sq == skv else np.ones((b, sq), bool)
+    mask = pad[:, None, :] & qpad[:, :, None]
+    if windows is not None:
+        pos = np.arange(skv)
+        mask = mask & (pos[None, :] <= pos[-sq:, None])
+    return q, k, v, mask, qpad
+
+
+# the JAX test's shapes (tests/test_pallas_attention.py), then Sq != Skv
+# and the tiny config's head dim
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,n_pad", [
+    (1, 130, 130, 8, 1, 128, 37), (2, 200, 200, 8, 2, 128, 37),
+    (2, 3, 50, 8, 2, 32, 11), (2, 40, 40, 4, 1, 16, 7)])
+def test_prefix_gqa_twin_matches_pallas(b, sq, skv, hq, hkv, d, n_pad):
+    rng = np.random.default_rng(5)
+    _check_prefix_twin(*_prefix_inputs(rng, b, sq, skv, hq, hkv, d, n_pad))
+
+
+# whole key blocks masked ahead of the first real key, for the Pallas
+# kernel's 128-key blocks and the CUDA kernel's 32-key tiles alike: the
+# p = 1 such a block collects must be wiped when a real score arrives
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,windows", [
+    (2, 300, 300, 8, 2, 32, [(140, 263), (40, 300)]),
+    (2, 5, 300, 4, 1, 16, [(130, 268), (33, 300)])])
+def test_prefix_gqa_twin_matches_pallas_leading_masked(b, sq, skv, hq, hkv, d,
+                                                       windows):
+    rng = np.random.default_rng(6)
+    q, k, v, mask, qpad = _prefix_inputs(rng, b, sq, skv, hq, hkv, d, 0,
+                                         windows=windows)
+    first_real = mask.argmax(-1)[qpad & mask.any(-1)]
+    assert first_real.max() >= 128          # a whole Pallas block, 4 tiles
+    _check_prefix_twin(q, k, v, mask, qpad)
+
+
+def _check_prefix_twin(q, k, v, mask, qpad):
+    b, sq, hq, d = q.shape
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tmask = torch.from_numpy(mask)
+    cuda_attention.reset_launch_counts()
+    twin = cuda_attention.prefix_gqa_plain(tq, tk, tv, tmask)
+    routed = cuda_attention.prefix_gqa(tq, tk, tv, tmask)
+    assert cuda_attention.launch_counts["prefix_gqa"] == 0
+    torch.testing.assert_close(routed, twin, atol=0, rtol=0)
+    assert twin.shape == (b, sq, hq * d) and twin.dtype == torch.float32
+    # fp32 v: both sides round q/k/v to bf16 and keep p in fp32, so valid
+    # rows agree to fp32 summation order (atol 1e-4)
+    ref = pallas_prefix_gqa(*(jnp.asarray(x) for x in (q, k, v, mask)),
+                            interpret=True)
+    valid = np.repeat(qpad[:, :, None], hq * d, axis=2)
+    assert np.abs(_np(twin) - _np(ref))[valid].max() <= 1e-4
+    # padding rows are a uniform softmax over the real keys, as in the
+    # eager path: ALL rows agree with gqa_attention on bf16 inputs within
+    # the JAX test's bound (bf16 rounding of p and of the result there)
+    eager = jatt.gqa_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), jnp.asarray(mask))
+    np.testing.assert_allclose(_np(twin), _np(eager), atol=1.5e-2, rtol=0)
+    # bf16 operands give a bf16 result unless fp32 is asked for
+    tb = [x.to(torch.bfloat16) for x in (tq, tk, tv)]
+    assert cuda_attention.prefix_gqa(*tb, tmask).dtype == torch.bfloat16
+    out32 = cuda_attention.prefix_gqa(*tb, tmask, out_dtype=torch.float32)
+    torch.testing.assert_close(out32, twin, atol=0, rtol=0)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -160,3 +238,24 @@ def test_kernels_match_twins_on_card(cuda_device, d):
     ref = cuda_attention.mha_dense_plain(q, k, v)
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    pq, pk, pv, pmask, _ = _prefix_inputs(rng, 2, 77, 77, 8, 1, d, 20)
+    pq, pk, pv = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                  for x in (pq, pk, pv))
+    pmask = torch.from_numpy(pmask).to(cuda_device)
+    got = cuda_attention.prefix_gqa(pq, pk, pv, pmask, out_dtype=torch.float32)
+    ref = cuda_attention.prefix_gqa_plain(pq, pk, pv, pmask,
+                                          out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-4
+    # one to three whole 32-key tiles masked ahead of the first real key
+    pq, pk, pv, pmask, _ = _prefix_inputs(
+        rng, 3, 150, 150, 8, 1, d, 0,
+        windows=[(40, 120), (100, 150), (0, 150)])
+    pq, pk, pv = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                  for x in (pq, pk, pv))
+    pmask = torch.from_numpy(pmask).to(cuda_device)
+    got = cuda_attention.prefix_gqa(pq, pk, pv, pmask, out_dtype=torch.float32)
+    ref = cuda_attention.prefix_gqa_plain(pq, pk, pv, pmask,
+                                          out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-4

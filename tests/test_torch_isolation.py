@@ -31,7 +31,11 @@ def _sources():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "cover_vla_tpu_torch.engine.verified_step" in mods
+    for name in ("engine.verified_step", "engine.cover_engine",
+                 "engine.batched_engine", "eval.evaluator", "eval.fake_env",
+                 "eval.adapters", "eval.fractal_adapters", "eval.benchmark",
+                 "eval.rephrase", "data.tokenizer", "ops.cuda_attention"):
+        assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['cover_vla_tpu'] = None\n"
@@ -74,5 +78,39 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
                                    CoVerConfig(n_samples=2, n_rephrases=2),
                                    DatasetStatistics.from_json())
     # an explicit CPU device is honoured
-    assert pi0.init_pi0(0, tiny_pi0_config(), device="cpu")[
-        "expert"]["final_norm"].device.type == "cpu"
+    pp = pi0.init_pi0(0, tiny_pi0_config(), device="cpu")
+    assert pp["expert"]["final_norm"].device.type == "cpu"
+
+    # the episode entry points: engines and the suite evaluator
+    from cover_vla_tpu_torch.data.tokenizer import HashTokenizer
+    from cover_vla_tpu_torch.engine import BatchedCoVerEngine, CoVerEngine
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_propose_step_batched, make_select_step_batched)
+    from cover_vla_tpu_torch.eval.evaluator import (
+        EvalConfig, evaluate_suite_batched)
+    pcfg, vcfg = tiny_pi0_config(), tiny_verifier_config()
+    ccfg = CoVerConfig(n_samples=2, n_rephrases=2)
+    vp = verifier.init_verifier(0, vcfg, device="cpu")
+    toks = dict(policy_tokenizer=HashTokenizer(pcfg.paligemma.vocab_size),
+                verifier_tokenizer=HashTokenizer(vcfg.text.vocab_size,
+                                                 add_bos=False))
+    cfg = EvalConfig(task_suite="simpler_carrot_on_plate",
+                     num_trials_per_task=1, max_steps=4)
+    for build in (
+            lambda **kw: CoVerEngine(pp, vp, pcfg, vcfg, ccfg, **toks, **kw),
+            lambda **kw: BatchedCoVerEngine(pp, vp, pcfg, vcfg, ccfg,
+                                            num_episodes=2, **toks, **kw),
+            lambda **kw: evaluate_suite_batched(pp, vp, pcfg, vcfg, ccfg, cfg,
+                                                n_parallel=1, **toks, **kw),
+            lambda **kw: make_propose_step_batched(
+                pcfg, vcfg, ccfg, DatasetStatistics.from_json(), **kw),
+            lambda **kw: make_select_step_batched(ccfg, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert CoVerEngine(pp, vp, pcfg, vcfg, ccfg, device="cpu", **toks
+                       ).device.type == "cpu"
+    assert BatchedCoVerEngine(pp, vp, pcfg, vcfg, ccfg, num_episodes=2,
+                              device="cpu", **toks)._generator.device.type == "cpu"
+    out = evaluate_suite_batched(pp, vp, pcfg, vcfg, ccfg, cfg, n_parallel=1,
+                                 device="cpu", **toks)
+    assert out["summary"]["total_episodes"] == 1

@@ -15,12 +15,14 @@ from cover_vla_tpu.models import gemma as jgemma
 from cover_vla_tpu.models import pi0 as jpi0
 from cover_vla_tpu.models import siglip as jsiglip
 from cover_vla_tpu.models import verifier as jverifier
+from cover_vla_tpu.ops import pallas_attention
 from cover_vla_tpu.ops.masks import make_att_2d_masks
 
 from cover_vla_tpu_torch.configs import (
     tiny_pi0_config, tiny_verifier_config, replace)
 from cover_vla_tpu_torch.convert.from_jax import pi0_from_jax, verifier_from_jax
 from cover_vla_tpu_torch.models import gemma, pi0, siglip, verifier
+from cover_vla_tpu_torch.ops import cuda_attention
 
 TOL = {"fp32": dict(actions=dict(atol=1e-4, rtol=0),
                     scores=dict(atol=1e-5, rtol=0)),
@@ -99,7 +101,7 @@ def test_from_jax_rejects_foreign_trees(setup):
         pi0_from_jax(tree, tc, device="cpu")
 
 
-def test_gemma_prefill_and_decode_match(setup):
+def test_gemma_prefill_and_decode_match(setup, monkeypatch):
     mode, (jc, jpp, _), (tc, tpp, _) = setup
     rng = np.random.default_rng(0)
     b, p, n, s = 2, 9, 3, 5
@@ -128,9 +130,34 @@ def test_gemma_prefill_and_decode_match(setup):
     tout = gemma.decode_shared_prefix(tpp["expert"], tc.expert, _t(semb),
                                       _t(spos), tcache, _t(pad), _t(smask))
     np.testing.assert_allclose(_np(tout), _np(jout), **tol)
-    with pytest.raises(NotImplementedError):
-        gemma.prefill(tpp["paligemma"], tc.paligemma, _t(emb), _t(pos),
-                      _t(mask), attn_impl="cuda")
+
+    # prefill through kernel K3's wrapper (on the CPU: its plain twin)
+    # against the JAX prefill through the Pallas kernel in interpret mode.
+    # Rows of padding queries are compared nowhere: there the port follows
+    # the eager path (mean of V over the real keys), the Pallas kernel the
+    # mean over its 128-padded key block; no valid row reads them.
+    orig = pallas_attention.pallas_prefix_gqa
+    monkeypatch.setattr(
+        pallas_attention, "pallas_prefix_gqa",
+        lambda q, k, v, m: orig(q, k, v, m, interpret=True))
+    jh2, jcache2 = jgemma.prefill(jpp["paligemma"], g, emb, pos, mask,
+                                  return_hidden=True, attn_impl="pallas")
+    cuda_attention.reset_launch_counts()
+    th2, tcache2 = gemma.prefill(tpp["paligemma"], tc.paligemma, _t(emb),
+                                 _t(pos), _t(mask), return_hidden=True,
+                                 attn_impl="cuda")
+    assert cuda_attention.launch_counts["prefix_gqa"] == 0    # CPU: twin
+    assert th2.dtype == tpp["paligemma"]["layers"]["q"].dtype
+    np.testing.assert_allclose(np.where(valid, _np(th2), 0),
+                               np.where(valid, _np(jh2), 0), **tol)
+    kvalid = pad[None, :, :, None, None]
+    for name in ("k", "v"):
+        np.testing.assert_allclose(np.where(kvalid, _np(tcache2[name]), 0),
+                                   np.where(kvalid, _np(jcache2[name]), 0),
+                                   **tol)
+    # "cuda" and "eager" agree on every row, padding rows included (bf16
+    # rounding of q/k/v inside the kernel path bounds the difference)
+    np.testing.assert_allclose(_np(th2), _np(th), atol=0.05, rtol=0.1)
 
 
 def test_siglip_towers_match(setup):
