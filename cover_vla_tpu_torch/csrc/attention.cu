@@ -1,5 +1,5 @@
-// K1 and K2: the bf16-probability instances of the flash-attention body in
-// flash_rows.cuh (see the notes there), behind a plain C interface.
+// K1: the flash-attention body in flash_rows.cuh (see the notes there),
+// behind a plain C interface.
 
 #include "flash_rows.cuh"
 
@@ -21,8 +21,6 @@ extern "C" int cvla_shared_prefix_gqa(
   p.v_suf = static_cast<const __nv_bfloat16*>(v_suf);
   p.key_valid = static_cast<const uint8_t*>(prefix_pad);
   p.suffix_mask = static_cast<const uint8_t*>(suffix_mask);
-  p.mask = nullptr;
-  p.out_f32 = nullptr;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.hkv = Hkv;
   p.groups = G;
@@ -32,33 +30,5 @@ extern "C" int cvla_shared_prefix_gqa(
   p.n_cand = N;
   p.s_len = S;
   p.scale = scale;
-  return dispatch<false>(p, B * Hkv, static_cast<cudaStream_t>(stream));
-}
-
-// K2. q [B, Sq, H, D]; k/v [B, Skv, H, D]; out [B, Sq, H, D]; bf16,
-// contiguous.
-extern "C" int cvla_mha_dense(const void* q, const void* k, const void* v,
-                              void* out, int B, int Sq, int Skv, int H,
-                              int D, float scale, void* stream) {
-  if (Skv <= 0 || H <= 0) return int(cudaErrorInvalidValue);
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.k_suf = nullptr;
-  p.v_suf = nullptr;
-  p.key_valid = nullptr;
-  p.suffix_mask = nullptr;
-  p.mask = nullptr;
-  p.out_f32 = nullptr;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.hkv = H;
-  p.groups = 1;
-  p.rows = Sq;
-  p.d = D;
-  p.n_keys = Skv;
-  p.n_cand = 0;
-  p.s_len = 0;
-  p.scale = scale;
-  return dispatch<false>(p, B * H, static_cast<cudaStream_t>(stream));
+  return dispatch(p, B * Hkv, static_cast<cudaStream_t>(stream));
 }

@@ -1,19 +1,18 @@
-// Hand-written Hopper (sm_90a) attention kernels of the port, bound to
-// Python through a plain C interface (ctypes). This header holds the one
-// flash-attention body; attention.cu (K1, K2) and prefix_attention.cu (K3)
-// instantiate it and are compiled side by side.
+// Hand-written Hopper (sm_90a) decode attention kernel of the port, bound
+// to Python through a plain C interface (ctypes). This header holds the
+// flash-attention body of K1, which attention.cu instantiates. (K2 and K3
+// have their own warpgroup body, flash_wgmma.cuh.)
 //
-// One flash-attention body serves all three kernels. A thread block owns up to
-// 64 query rows of one (batch, kv-head) pair: 4 warps of 16 rows each. Key
-// and value tiles of 32 keys are copied into shared memory with cp.async,
-// two stages deep, so the copy of the next tile overlaps the products of
-// this one. Scores come from bf16 tensor-core products (mma.sync m16n8k16,
-// fp32 accumulation; V's operands read transposed with ldmatrix.trans) and
-// run through one fp32 online softmax. In K1 and K2 probabilities are
-// rounded to bf16 before the PV product and the running row sum adds the
-// rounded values; K3 (EXACT) keeps them in fp32. The output is divided by
-// the row sum at the end. These are the rounding points of the TPU kernels
-// this file replaces.
+// A thread block owns up to 64 query rows of one (batch, kv-head) pair:
+// 4 warps of 16 rows each. Key and value tiles of 32 keys are copied into
+// shared memory with cp.async, two stages deep, so the copy of the next
+// tile overlaps the products of this one. Scores come from bf16
+// tensor-core products (mma.sync m16n8k16, fp32 accumulation; V's operands
+// read transposed with ldmatrix.trans) and run through one fp32 online
+// softmax. Probabilities are rounded to bf16 before the PV product and the
+// running row sum adds the rounded values. The output is divided by the
+// row sum at the end. These are the rounding points of the TPU kernel this
+// file replaces.
 //
 // K1  cvla_shared_prefix_gqa
 //     Replaces cover_vla_tpu/ops/pallas_attention.py pallas_shared_prefix_gqa
@@ -30,44 +29,6 @@
 //     registers (no [rows, P] score tensor in device memory) and reads the
 //     prefix tiles through shared memory, so device traffic stays near the
 //     inputs once plus L2 re-reads across row tiles.
-//
-// K2  cvla_mha_dense
-//     Replaces cover_vla_tpu/ops/pallas_attention.py pallas_mha_dense
-//     (_dense_mha_kernel): mask-free multi-head attention of the SigLIP
-//     towers. Rows are the queries of one (batch, head); the key loop is
-//     bounded by the key count, so no padding is needed. Head dims 8..256
-//     in steps of 8 (72 for so400m, 64 for the SigLIP2 towers) are
-//     zero-padded to a multiple of 16 in shared memory only.
-//     Bound on the H100: at the ViT-L/16-384 shape (16 x 576 tokens x 16
-//     heads x 64) one launch moves ~75 MB and does ~22 GFLOP, about 22 us
-//     at 3.35 TB/s against 22 us at 989 TFLOP/s: near both limits. The
-//     design never writes the [S, S] score tensor to device memory.
-//
-// K3  cvla_prefix_gqa  (template argument EXACT)
-//     Replaces cover_vla_tpu/ops/pallas_attention.py pallas_prefix_gqa
-//     (_attention_kernel): masked prefix-LM GQA of the PaliGemma prefill.
-//     The rows of a (batch, kv-head) pair are its Sq*G query rows,
-//     position-major, so K and V tiles are read once for all G heads; the
-//     mask row of a query row is that of its position. mask is bool
-//     [B, Sq, Skv], read straight from device memory (no per-head copy,
-//     no padding of S). Masked scores are the finite kBigNeg, keys past
-//     Skv are -inf: a row whose keys are all masked (a padding query) is a
-//     uniform softmax over the Skv real keys, which is what the eager
-//     path gives, and a real score arriving later wipes the p = 1 a masked
-//     tile collected (alpha = exp(kBigNeg - m) = 0).
-//     Probabilities stay fp32, as in the TPU kernel: p is split into
-//     hi = bf16(p) and lo = bf16(p - hi) and P V is two tensor-core
-//     products, hi V + lo V, accumulated in fp32 (V is bf16, so the only
-//     loss is lo's rounding, relative 2^-18 of p). The row sum adds the
-//     unrounded fp32 p. The result is written as fp32 or as bf16.
-//     Bound on the H100: at B = 16 prompts, Sq = Skv = 328, 8 query heads
-//     over 1 KV head, D = 256 (q 21.5 MB, K/V 5.4 MB, mask 1.7 MB, bf16
-//     output 21.5 MB; 9.4 GFLOP over the 268 x 268 attended pairs) one
-//     launch needs about 15 us of memory traffic and 9.5 us of bf16
-//     tensor-core time: memory bound, with operations close behind. The
-//     design keeps the scores in registers and reads each K/V tile once
-//     per 64-row tile of all 8 heads; the second P V product is the price
-//     of fp32 probabilities on bf16 tensor cores.
 
 #pragma once
 
@@ -92,9 +53,7 @@ struct Params {
   const __nv_bfloat16* v_suf;  // [B, n_cand, s_len, hkv, d] or null
   const uint8_t* key_valid;    // [B, n_keys] or null (all keys valid)
   const uint8_t* suffix_mask;  // [B, s_len, s_len] or null
-  const uint8_t* mask;         // EXACT: [B, rows / groups, n_keys]
   __nv_bfloat16* out;          // same layout as q
-  float* out_f32;              // EXACT: fp32 output instead of `out`, or null
   int hkv;     // key/value heads
   int groups;  // query heads per key/value head
   int rows;    // query rows per (batch, kv head)
@@ -127,14 +86,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// x, y as fp32 -> packed bf16 pairs hi = bf16(.) and lo = bf16(. - hi)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const float xh = round_bf16(x), yh = round_bf16(y);
-  hi = pack_bf16(xh, yh);
-  lo = pack_bf16(x - xh, y - yh);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -180,9 +131,8 @@ constexpr size_t smem_bytes() {
          kStages * kKeys * sizeof(int) + kMaxSuffixMask;
 }
 
-// DP: head dim padded to a multiple of 16 (the mma depth). EXACT: K3's
-// per-(position, key) mask and fp32 probabilities.
-template <int DP, bool EXACT>
+// DP: head dim padded to a multiple of 16 (the mma depth).
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_rows_kernel(const Params p) {
   constexpr int QS = DP + 8;     // row stride of every tile (conflict-free)
@@ -235,17 +185,6 @@ flash_rows_kernel(const Params p) {
     const int r = r0 + warp * 16 + g + 8 * h;
     row_n[h] = suffix_mode ? r / (p.s_len * p.groups) : 0;
     row_s[h] = suffix_mode ? (r / p.groups) % p.s_len : 0;
-  }
-  // EXACT: the mask row of each held row (its position; clamped for the
-  // rows past the end, which are never stored)
-  const uint8_t* mask_row[2] = {nullptr, nullptr};
-  if constexpr (EXACT) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = min(r0 + warp * 16 + g + 8 * h, p.rows - 1);
-      mask_row[h] = p.mask + (size_t(b) * rows_per_b + r / p.groups) *
-                                 size_t(p.n_keys);
-    }
   }
   int n_first = 0, n_suf = 0;
   if (suffix_mode) {
@@ -327,25 +266,6 @@ flash_rows_kernel(const Params p) {
     const __nv_bfloat16* tv = sV + stage * TILE;
     const int* info_row = sInfo + stage * kKeys;
 
-    // EXACT: this thread's 2 rows x 8 keys of the mask, fetched ahead of
-    // the score products; bit 2 * i: key in range, bit 2 * i + 1: attend
-    uint32_t mbits = 0;
-    if constexpr (EXACT) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = tile * kKeys + nt * 8 + t * 2 + e;
-            const int i = (h * NT + nt) * 2 + e;
-            if (j < p.n_keys)
-              mbits |= (1u | (mask_row[h][j] != 0 ? 2u : 0u)) << (2 * i);
-          }
-        }
-      }
-    }
-
     // scores S = Q K^T for this warp's 16 rows x 32 keys
     float sc[NT][4];
 #pragma unroll
@@ -371,23 +291,15 @@ flash_rows_kernel(const Params p) {
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float s;
-          if constexpr (EXACT) {
-            const uint32_t mb = mbits >> (2 * ((h * NT + nt) * 2 + e));
-            s = (mb & 2u)   ? sc[nt][2 * h + e] * p.scale
-                : (mb & 1u) ? kBigNeg
-                            : -INFINITY;
+          const int info = info_row[nt * 8 + t * 2 + e];
+          bool valid;
+          if (suffix) {
+            valid = info >= 0 && (info >> 8) == row_n[h] &&
+                    sMask[row_s[h] * p.s_len + (info & 0xff)] != 0;
           } else {
-            const int info = info_row[nt * 8 + t * 2 + e];
-            bool valid;
-            if (suffix) {
-              valid = info >= 0 && (info >> 8) == row_n[h] &&
-                      sMask[row_s[h] * p.s_len + (info & 0xff)] != 0;
-            } else {
-              valid = info != 0;
-            }
-            s = valid ? sc[nt][2 * h + e] * p.scale : kBigNeg;
+            valid = info != 0;
           }
+          const float s = valid ? sc[nt][2 * h + e] * p.scale : kBigNeg;
           sc[nt][2 * h + e] = s;
           mx = fmaxf(mx, s);
         }
@@ -401,8 +313,7 @@ flash_rows_kernel(const Params p) {
       for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float prob = expf(sc[nt][2 * h + e] - m_new);
-          if constexpr (!EXACT) prob = round_bf16(prob);
+          const float prob = round_bf16(expf(sc[nt][2 * h + e] - m_new));
           sc[nt][2 * h + e] = prob;
           rs += prob;
         }
@@ -419,22 +330,14 @@ flash_rows_kernel(const Params p) {
     }
 
     // O += P V: the score fragments are the A operand (bf16-exact
-    // values, or with EXACT the hi and lo halves of the fp32 values);
-    // V's B operands come transposed out of the row-major tile
+    // values); V's B operands come transposed out of the row-major tile
 #pragma unroll
     for (int kc = 0; kc < kKeys / 16; ++kc) {
-      uint32_t a[4], lo[4] = {0u, 0u, 0u, 0u};
-      if constexpr (EXACT) {
-        split_bf16(sc[2 * kc][0], sc[2 * kc][1], a[0], lo[0]);
-        split_bf16(sc[2 * kc][2], sc[2 * kc][3], a[1], lo[1]);
-        split_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1], a[2], lo[2]);
-        split_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3], a[3], lo[3]);
-      } else {
-        a[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
-        a[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
-        a[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
-        a[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
-      }
+      uint32_t a[4];
+      a[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
+      a[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
+      a[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
+      a[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
 #pragma unroll
       for (int dn = 0; dn < DT; dn += 2) {
         uint32_t bv[4];
@@ -442,17 +345,12 @@ flash_rows_kernel(const Params p) {
             bv, tv + (kc * 16 + (lane & 15)) * QS + (dn + (lane >> 4)) * 8);
         mma_16816(acc[dn], a[0], a[1], a[2], a[3], bv[0], bv[1]);
         mma_16816(acc[dn + 1], a[0], a[1], a[2], a[3], bv[2], bv[3]);
-        if constexpr (EXACT) {
-          mma_16816(acc[dn], lo[0], lo[1], lo[2], lo[3], bv[0], bv[1]);
-          mma_16816(acc[dn + 1], lo[0], lo[1], lo[2], lo[3], bv[2], bv[3]);
-        }
       }
     }
     __syncthreads();
   }
 
-  // epilogue: divide by the row sum, store d columns as bf16 (or, with
-  // EXACT and out_f32 set, as fp32)
+  // epilogue: divide by the row sum, store d columns as bf16
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + warp * 16 + g + 8 * h;
@@ -464,38 +362,34 @@ flash_rows_kernel(const Params p) {
         const int c = dn * 8 + t * 2;
         if (c >= p.d) continue;
         const float o0 = acc[dn][2 * h] / l, o1 = acc[dn][2 * h + 1] / l;
-        if (EXACT && p.out_f32 != nullptr)
-          *reinterpret_cast<float2*>(p.out_f32 + off + c) = make_float2(o0, o1);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(p.out + off + c) =
-              __floats2bfloat162_rn(o0, o1);
+        *reinterpret_cast<__nv_bfloat162*>(p.out + off + c) =
+            __floats2bfloat162_rn(o0, o1);
       }
     }
   }
 }
 
-template <int DP, bool EXACT>
+template <int DP>
 int launch(const Params& p, int batch_heads, cudaStream_t stream) {
   const size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_rows_kernel<DP, EXACT>,
+      flash_rows_kernel<DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(batch_heads, (p.rows + kRows - 1) / kRows);
-  flash_rows_kernel<DP, EXACT><<<grid, kThreads, smem, stream>>>(p);
+  flash_rows_kernel<DP><<<grid, kThreads, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-template <bool EXACT>
-int dispatch(const Params& p, int batch_heads, cudaStream_t stream) {
+inline int dispatch(const Params& p, int batch_heads, cudaStream_t stream) {
   if (p.d <= 0 || p.d % 8 != 0 || p.rows <= 0 || batch_heads <= 0)
     return int(cudaErrorInvalidValue);
-  if (p.d <= 16) return launch<16, EXACT>(p, batch_heads, stream);
-  if (p.d <= 32) return launch<32, EXACT>(p, batch_heads, stream);
-  if (p.d <= 64) return launch<64, EXACT>(p, batch_heads, stream);
-  if (p.d <= 80) return launch<80, EXACT>(p, batch_heads, stream);
-  if (p.d <= 128) return launch<128, EXACT>(p, batch_heads, stream);
-  if (p.d <= 256) return launch<256, EXACT>(p, batch_heads, stream);
+  if (p.d <= 16) return launch<16>(p, batch_heads, stream);
+  if (p.d <= 32) return launch<32>(p, batch_heads, stream);
+  if (p.d <= 64) return launch<64>(p, batch_heads, stream);
+  if (p.d <= 80) return launch<80>(p, batch_heads, stream);
+  if (p.d <= 128) return launch<128>(p, batch_heads, stream);
+  if (p.d <= 256) return launch<256>(p, batch_heads, stream);
   return int(cudaErrorInvalidValue);
 }
 

@@ -16,8 +16,8 @@ The twins compute what the kernels compute with the same rounding points:
 inputs rounded to bf16, fp32 scores and softmax, probabilities rounded to
 bf16 before the PV product, and division by the sum of the rounded
 probabilities at the end. (The kernels take their running maximum over
-key tiles, the twins over the whole row, so p can round one bf16 ulp
-apart.) K3 keeps its probabilities in fp32 (see `prefix_gqa_plain`).
+key tiles, the twins over the whole row, and K2 and K3 compute 2^x on
+scores pre-scaled by log2 e, so p can round one bf16 ulp apart.) K3 keeps its probabilities in fp32 (see `prefix_gqa_plain`).
 """
 
 from __future__ import annotations
@@ -25,6 +25,12 @@ from __future__ import annotations
 import torch
 
 from cover_vla_tpu_torch.ops.attention import BIG_NEG
+
+# which body under csrc/ a kernel's C entry point dispatches to: "wgmma"
+# is flash_wgmma.cuh (warpgroup products, every head dim), "mma_sync" is
+# flash_rows.cuh
+kernel_designs = {"shared_prefix_gqa": "mma_sync", "mha_dense": "wgmma",
+                  "prefix_gqa": "wgmma"}
 
 # launches of each kernel since the last reset (CPU twin calls not counted)
 launch_counts = {"shared_prefix_gqa": 0, "mha_dense": 0, "prefix_gqa": 0}

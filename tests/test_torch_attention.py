@@ -113,8 +113,11 @@ def test_shared_prefix_twin_matches_pallas(b, n, s, hq, hkv, d, p):
     np.testing.assert_allclose(_np(twin), _np(ref), atol=2e-2, rtol=0)
 
 
+# then one under and over the CUDA kernel's 64-key tile, and one over its
+# 128-row block, at so400m's head dim
 @pytest.mark.parametrize("b,s,h,d", [(2, 37, 4, 16), (1, 300, 2, 32),
-                                     (2, 40, 2, 72)])
+                                     (2, 40, 2, 72), (1, 63, 2, 72),
+                                     (1, 65, 2, 72), (1, 129, 2, 72)])
 def test_mha_dense_twin_matches_pallas(b, s, h, d):
     rng = np.random.default_rng(3)
     q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
@@ -160,16 +163,22 @@ def _prefix_inputs(rng, b, sq, skv, hq, hkv, d, n_pad, windows=None):
 
 # the JAX test's shapes (tests/test_pallas_attention.py), then Sq != Skv
 # and the tiny config's head dim
+# and the tiny config's head dim; then one over the CUDA kernel's 64-key
+# tile and 128-row block with the padding starting inside a 16-position
+# block (positions 60.. and 100.. of a block at 48 and 96), so real and
+# all-masked rows share a block, and Sq one over a tile against Skv two
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,n_pad", [
     (1, 130, 130, 8, 1, 128, 37), (2, 200, 200, 8, 2, 128, 37),
-    (2, 3, 50, 8, 2, 32, 11), (2, 40, 40, 4, 1, 16, 7)])
+    (2, 3, 50, 8, 2, 32, 11), (2, 40, 40, 4, 1, 16, 7),
+    (1, 65, 65, 8, 1, 32, 5), (2, 129, 129, 8, 1, 16, 29),
+    (2, 65, 129, 8, 1, 16, 20)])
 def test_prefix_gqa_twin_matches_pallas(b, sq, skv, hq, hkv, d, n_pad):
     rng = np.random.default_rng(5)
     _check_prefix_twin(*_prefix_inputs(rng, b, sq, skv, hq, hkv, d, n_pad))
 
 
 # whole key blocks masked ahead of the first real key, for the Pallas
-# kernel's 128-key blocks and the CUDA kernel's 32-key tiles alike: the
+# kernel's 128-key blocks and the CUDA kernel's 64-key tiles alike: the
 # p = 1 such a block collects must be wiped when a real score arrives
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,windows", [
     (2, 300, 300, 8, 2, 32, [(140, 263), (40, 300)]),
@@ -180,7 +189,7 @@ def test_prefix_gqa_twin_matches_pallas_leading_masked(b, sq, skv, hq, hkv, d,
     q, k, v, mask, qpad = _prefix_inputs(rng, b, sq, skv, hq, hkv, d, 0,
                                          windows=windows)
     first_real = mask.argmax(-1)[qpad & mask.any(-1)]
-    assert first_real.max() >= 128          # a whole Pallas block, 4 tiles
+    assert first_real.max() >= 128          # a whole Pallas block, 2 tiles
     _check_prefix_twin(q, k, v, mask, qpad)
 
 
@@ -247,7 +256,7 @@ def test_kernels_match_twins_on_card(cuda_device, d):
                                           out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-4
-    # one to three whole 32-key tiles masked ahead of the first real key
+    # whole 64-key tiles masked ahead of the first real key
     pq, pk, pv, pmask, _ = _prefix_inputs(
         rng, 3, 150, 150, 8, 1, d, 0,
         windows=[(40, 120), (100, 150), (0, 150)])
@@ -259,3 +268,41 @@ def test_kernels_match_twins_on_card(cuda_device, d):
                                           out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+# the edges of the warpgroup kernels' tiles: 64 keys, 64 rows a warpgroup,
+# 128 rows a block (16 positions of 8 heads in K3)
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 577])
+@pytest.mark.parametrize("d", [64, 72])
+def test_mha_dense_tile_edges_on_card(cuda_device, s, d):
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, 3, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(3))
+    got = cuda_attention.mha_dense(q, k, v)
+    ref = cuda_attention.mha_dense_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+# (Sq, Skv, trailing padding): the padding starts inside a 16-position
+# block, so all-masked rows share a block, and a warpgroup, with real ones
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,n_pad", [(63, 63, 5), (65, 65, 5),
+                                          (129, 129, 69), (129, 129, 1),
+                                          (65, 129, 20), (17, 130, 64)])
+@pytest.mark.parametrize("d", [72, 256])
+def test_prefix_gqa_tile_edges_on_card(cuda_device, sq, skv, n_pad, d):
+    rng = np.random.default_rng(8)
+    pq, pk, pv, pmask, _ = _prefix_inputs(rng, 2, sq, skv, 8, 1, d, n_pad)
+    pq, pk, pv = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                  for x in (pq, pk, pv))
+    pmask = torch.from_numpy(pmask).to(cuda_device)
+    got = cuda_attention.prefix_gqa(pq, pk, pv, pmask, out_dtype=torch.float32)
+    ref = cuda_attention.prefix_gqa_plain(pq, pk, pv, pmask,
+                                          out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-4       # every row
+    got16 = cuda_attention.prefix_gqa(pq, pk, pv, pmask)
+    torch.cuda.synchronize()
+    assert (got16.float() - ref).abs().max().item() <= 2e-2
