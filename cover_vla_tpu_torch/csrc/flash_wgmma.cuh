@@ -59,6 +59,14 @@ constexpr int kTileKeys = 64;            // keys per shared-memory tile
 // bytes between the column chunks of a 64-row tile: 64 x 16 and 16 more, so
 // that the 16-byte chunks of one row lie in different banks (see wgmma.cuh)
 constexpr int kChunkBytes = 64 * 16 + 16;
+// K2: 16 keys x 8 columns of bf16 ones, the B operand that makes the tensor
+// cores add up a row's rounded probabilities
+constexpr int kOnesBytes = 16 * 16;
+// the running maximum (base-2 domain) is raised, and the accumulators are
+// rescaled, only when a tile's maximum exceeds it by more than this; until
+// then probabilities are taken relative to the older maximum and can reach
+// 2^kRaise, which cancels in the final division
+constexpr float kRaise = 8.f;
 
 struct WgParams {
   const __nv_bfloat16* q;  // [B, rows / groups, hkv * groups, d]
@@ -83,7 +91,8 @@ __host__ __device__ constexpr int wg_stages(int dp) {
 template <int DP, int NWG, bool EXACT>
 constexpr size_t wg_smem_bytes() {
   return size_t(NWG + 2 * wg_stages(DP)) * (DP / 8) * kChunkBytes +
-         (EXACT ? size_t(wg_stages(DP)) * NWG * kWgRows * kTileKeys : 0);
+         (EXACT ? size_t(wg_stages(DP)) * NWG * kWgRows * kTileKeys
+                : kOnesBytes);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -101,6 +110,7 @@ flash_wgmma_kernel(const WgParams p) {
   constexpr int kBlockRows = kWgRows * NWG;  // query rows per block
   constexpr int kWgThreads = 128 * NWG;
   constexpr int STAGES = wg_stages(DP);
+  constexpr bool PIPE = STAGES >= 3;  // the pipelined loop, see below
   constexpr int CPR = DP / 8;               // 16-byte chunks per row
   constexpr uint32_t Q_CHUNK = kChunkBytes;   // bytes between column chunks
   constexpr uint32_t KV_CHUNK = kChunkBytes;
@@ -113,6 +123,7 @@ flash_wgmma_kernel(const WgParams p) {
   const uint32_t sK = sQ + kWarpgroups * Q_BYTES;   // [STAGES] K tiles
   const uint32_t sV = sK + STAGES * KV_BYTES;       // [STAGES] V tiles
   uint8_t* sMask = smem + kWarpgroups * Q_BYTES + 2 * STAGES * KV_BYTES;
+  const uint32_t sOnes = sV + STAGES * KV_BYTES;  // !EXACT: in the mask's place
 
   // the row tiles of one (batch, kv-head) pair are neighbours in the grid:
   // blocks that run at the same time read the same K and V, which stay in
@@ -204,6 +215,11 @@ flash_wgmma_kernel(const WgParams p) {
     }
   };
 
+  if constexpr (!EXACT) {
+    if (tid < kOnesBytes / 4)
+      reinterpret_cast<uint32_t*>(sMask)[tid] = 0x3f803f80u;  // bf16 1, 1
+  }
+
   const int n_tiles = (p.n_keys + kTileKeys - 1) / kTileKeys;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -225,26 +241,22 @@ flash_wgmma_kernel(const WgParams p) {
   }
 
   float m_i[2] = {kBigNeg, kBigNeg};  // running maximum, base-2 domain
-  float l_i[2] = {0.f, 0.f};          // this thread's share of the row sum
+  // the row sum: EXACT adds this thread's share in l_i[h]; otherwise the
+  // tensor cores add the rounded probabilities (P times a column of ones)
+  // into l_acc, rows h at l_acc[2 * h]
+  float l_i[2] = {0.f, 0.f};
+  float l_acc[4] = {0.f, 0.f, 0.f, 0.f};
   float o[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 
   const uint32_t sQw = sQ + wg * Q_BYTES;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile % STAGES;
-    // tile `tile` has landed; every warpgroup is done with tile - 1, whose
-    // stage the next copy overwrites
-    cp_async_wait_group<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();
-    if (tile + STAGES - 1 < n_tiles)
-      load_tile(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
-    cp_async_commit_group();
-    if (!wg_active) continue;
+  uint32_t pa[kTileKeys / 16][4];  // P as A operand (EXACT: its hi half)
+  uint32_t pb[EXACT ? kTileKeys / 16 : 1][4];  // EXACT: the lo half
+  float alpha[2];
 
-    // S = Q K^T: 64 rows x 64 keys, depth DP in steps of 16
-    float s[kTileKeys / 2];
+  // S = Q K^T of one tile: 64 rows x 64 keys, depth DP in steps of 16
+  auto issue_scores = [&](float (&s)[kTileKeys / 2], int stage) {
     const uint32_t tk = sK + stage * KV_BYTES;
     wgmma_fence();
 #pragma unroll
@@ -252,14 +264,14 @@ flash_wgmma_kernel(const WgParams p) {
       wgmma_ss_n64(s, wgmma_desc(sQw + kk * 2 * Q_CHUNK, Q_CHUNK, 128),
                    wgmma_desc(tk + kk * 2 * KV_CHUNK, KV_CHUNK, 128), kk > 0);
     wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_pin(s);
+  };
 
-    // online softmax; s[4 * j + 2 * h + e] is row h, key 8 * j + 2 * t + e
+  // online softmax of one tile: turns the scores in `s` into fp32
+  // probabilities in place and updates alpha, m_i (and EXACT's l_i);
+  // s[4 * j + 2 * h + e] is row h, key 8 * j + 2 * t + e
+  auto softmax_tile = [&](float (&s)[kTileKeys / 2], int tile, int stage) {
     const int j0 = tile * kTileKeys;
     const bool ragged = j0 + kTileKeys > p.n_keys;
-    uint32_t pa[kTileKeys / 16][4];  // P as A operand (EXACT: its hi half)
-    uint32_t pb[EXACT ? kTileKeys / 16 : 1][4];  // EXACT: the lo half
     const uint8_t* tm = sMask + stage * MASK_BYTES;
     if (ragged) {  // keys past the last: out of every row's softmax
 #pragma unroll
@@ -295,57 +307,159 @@ flash_wgmma_kernel(const WgParams p) {
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_i[h], mx);
-      const float alpha = ex2_approx(m_i[h] - m_new);
-      m_i[h] = m_new;
+      // raise the maximum only past kRaise (always at a row's first real
+      // score, which lies far above kBigNeg)
+      const bool raise = mx > m_i[h] + kRaise;
+      alpha[h] = raise ? ex2_approx(m_i[h] - mx) : 1.f;
+      m_i[h] = raise ? mx : m_i[h];
+      const float m_ref = m_i[h];
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < kTileKeys / 8; ++j) {
         float p0, p1;
         if constexpr (EXACT) {
-          p0 = ex2_approx(s[4 * j + 2 * h] - m_new);
-          p1 = ex2_approx(s[4 * j + 2 * h + 1] - m_new);
+          p0 = ex2_approx(s[4 * j + 2 * h] - m_ref);
+          p1 = ex2_approx(s[4 * j + 2 * h + 1] - m_ref);
         } else {
-          p0 = ex2_approx(fmaf(s[4 * j + 2 * h], p.scale_log2, -m_new));
-          p1 = ex2_approx(fmaf(s[4 * j + 2 * h + 1], p.scale_log2, -m_new));
+          p0 = ex2_approx(fmaf(s[4 * j + 2 * h], p.scale_log2, -m_ref));
+          p1 = ex2_approx(fmaf(s[4 * j + 2 * h + 1], p.scale_log2, -m_ref));
         }
+        s[4 * j + 2 * h] = p0;
+        s[4 * j + 2 * h + 1] = p1;
+        rs += p0 + p1;
+      }
+      if constexpr (EXACT) l_i[h] = l_i[h] * alpha[h] + rs;
+    }
+  };
+
+  // the probabilities as the register A operand of P V: rounded to bf16
+  // (K2), or split into hi = bf16(p) and lo = bf16(p - hi) (EXACT)
+  auto pack_probs = [&](const float (&s)[kTileKeys / 2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < kTileKeys / 8; ++j) {
+        const float p0 = s[4 * j + 2 * h], p1 = s[4 * j + 2 * h + 1];
         const uint32_t hi = pack_bf16x2(p0, p1);
-        const float h0 = __uint_as_float(hi << 16);
-        const float h1 = __uint_as_float(hi & 0xffff0000u);
         pa[j / 2][(j % 2) * 2 + h] = hi;
         if constexpr (EXACT) {
+          const float h0 = __uint_as_float(hi << 16);
+          const float h1 = __uint_as_float(hi & 0xffff0000u);
           pb[j / 2][(j % 2) * 2 + h] = pack_bf16x2(p0 - h0, p1 - h1);
-          rs += p0 + p1;
-        } else {
-          rs += h0 + h1;
         }
       }
-      l_i[h] = l_i[h] * alpha + rs;
+    }
+  };
+
+  // rescales the accumulators where a row of this warp raised its maximum
+  auto rescale = [&]() {
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        o[4 * j + 2 * h] *= alpha;
-        o[4 * j + 2 * h + 1] *= alpha;
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          o[4 * j + 2 * h] *= alpha[h];
+          o[4 * j + 2 * h + 1] *= alpha[h];
+        }
+        l_acc[2 * h] *= alpha[h];
+        l_acc[2 * h + 1] *= alpha[h];
       }
     }
+  };
 
-    // O += P V: depth 64 keys in steps of 16, V through the transposed-B
-    // descriptor
+  // O += P V: depth 64 keys in steps of 16, V through the transposed-B
+  // descriptor; K2 also adds the row sums (P times ones)
+  auto issue_pv = [&](int stage) {
     const uint32_t tv = sV + stage * KV_BYTES;
-    wgmma_pin(o);
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < kTileKeys / 16; ++kc) {
       wgmma_rs<DP>(o, pa[kc], tv + kc * 256, KV_CHUNK);
-      if constexpr (EXACT) wgmma_rs<DP>(o, pb[kc], tv + kc * 256, KV_CHUNK);
+      if constexpr (EXACT)
+        wgmma_rs<DP>(o, pb[kc], tv + kc * 256, KV_CHUNK);
+      else
+        wgmma_rs_n8(l_acc, pa[kc], wgmma_desc(sOnes, 128, 128));
     }
     wgmma_commit();
+  };
+
+  if constexpr (!PIPE) {
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int stage = tile % STAGES;
+      // tile `tile` has landed; every warpgroup is done with tile - 1,
+      // whose stage the next copy overwrites
+      cp_async_wait_group<STAGES - 2>();
+      fence_proxy_async();
+      __syncthreads();
+      if (tile + STAGES - 1 < n_tiles)
+        load_tile(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+      cp_async_commit_group();
+      if (!wg_active) continue;
+
+      float s[kTileKeys / 2];
+      issue_scores(s, stage);
+      wgmma_wait<0>();
+      wgmma_pin(s);
+      softmax_tile(s, tile, stage);
+      pack_probs(s);
+      rescale();
+      wgmma_pin(o);
+      wgmma_pin(l_acc);
+      issue_pv(stage);
+      wgmma_wait<0>();
+      wgmma_pin(o);
+      wgmma_pin(l_acc);
+    }
+  } else {
+    // Pipelined: in iteration t the scores of tile t + 1 and then P V of
+    // tile t are issued back to back; the softmax of tile t + 1 starts as
+    // soon as its scores are there (wgmma_wait<1>: all but the newest
+    // group) and runs under P V of tile t; the probabilities are packed
+    // into the A registers only when that product has stopped reading
+    // them (wgmma_wait<0>). Tiles t and t + 1 are resident, the copies run
+    // STAGES - 2 tiles further ahead.
+    // (Every warpgroup issues every product, also one whose rows lie past
+    // the end, and the scores of a tile past the last, whose results
+    // nobody reads: products under a condition make the compiler
+    // serialise them.)
+    float s[kTileKeys / 2];
+    cp_async_wait_group<STAGES - 2>();  // tile 0 (and Q)
+    fence_proxy_async();
+    __syncthreads();
+    issue_scores(s, 0);
     wgmma_wait<0>();
-    wgmma_pin(o);
+    wgmma_pin(s);
+    softmax_tile(s, 0, 0);
+    pack_probs(s);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int stage = tile % STAGES, next = (tile + 1) % STAGES;
+      // tile + 1 has landed; every warpgroup is done with tile - 1, whose
+      // stage the next copy overwrites
+      cp_async_wait_group<STAGES - 3>();
+      fence_proxy_async();
+      __syncthreads();
+      if (tile + STAGES - 1 < n_tiles)
+        load_tile(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+      cp_async_commit_group();
+
+      rescale();  // by the alpha of this tile's softmax; nothing in flight
+      wgmma_pin(o);
+      wgmma_pin(l_acc);
+      issue_scores(s, next);
+      issue_pv(stage);
+      wgmma_wait<1>();  // the scores
+      wgmma_pin(s);
+      if (tile + 1 < n_tiles) softmax_tile(s, tile + 1, next);
+      wgmma_wait<0>();  // P V
+      wgmma_pin(o);
+      wgmma_pin(l_acc);
+      pack_probs(s);
+    }
   }
   cp_async_wait_group<0>();
   if (!wg_active) return;
 
-  // epilogue: the quad's shares make the row sum; one division a row.
+  // epilogue: the row sum (EXACT: of the quad's shares); one division a row.
   // fp32 results (EXACT with out_f32) go straight to device memory, 32
   // bytes a quad. bf16 results go through the warpgroup's own Q tile (no
   // product reads it any more) in the tile layout and leave as 16-byte
@@ -353,9 +467,12 @@ flash_wgmma_kernel(const WgParams p) {
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float l = l_i[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    float l = l_acc[2 * h];
+    if constexpr (EXACT) {
+      l = l_i[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+    }
     inv[h] = 1.f / fmaxf(l, 1e-37f);
   }
   if (EXACT && p.out_f32 != nullptr) {
