@@ -956,8 +956,13 @@ def main() -> int:
     lib = _build.load()
     log(f"kernels: {lib.path} built in {lib.build_seconds:.1f}s")
     for line in lib.compiler_log.splitlines():
-        if any(w in line for w in ("registers", "spill", "error", "warning")):
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "error", "warning", "Performance Loss")):
             log(f"  nvcc: {line.strip()}")
+    # ptxas serialises wgmma products it cannot prove independent and only
+    # says so in a note (C7510 and following)
+    if "wgmma.mma_async instructions are serialized" in lib.compiler_log:
+        raise AssertionError("ptxas serialised the wgmma products of a kernel")
     spills = wgmma_spills(lib.compiler_log)
     if spills:      # empty when an existing library was reused
         log(f"kernels: spilled bytes (stores, loads) of the wgmma kernels "

@@ -11,13 +11,17 @@
 // 3.35 TB/s against 22 us at 989 TFLOP/s: bound by operations, and beside
 // the tensor cores by the special-function unit, which needs as long for
 // the 85 M exponentials (16 a clock an SM) as the tensor cores for the two
-// products. The design (flash_wgmma.cuh) therefore issues both products as
-// asynchronous warpgroup instructions (wgmma) that leave the warps'
-// issue slots to the softmax, spends one special-function instruction
-// per score (2^x on scores pre-scaled by log2 e), keeps 16 warps of two or
-// more blocks on an SM so that one warpgroup's softmax runs under
-// another's products, keeps K/V four tiles deep in flight, and never
-// writes the [S, S] score tensor to device memory.
+// products. What a launch waits for in practice is the K/V traffic from
+// L2 to shared memory: every row tile of a (batch, head) pair reads all of
+// its K and V again. The design (flash_wgmma.cuh) therefore issues both
+// products as asynchronous warpgroup instructions (wgmma) that leave the
+// warps' issue slots to the softmax, spends one special-function
+// instruction per score (2^x on scores pre-scaled by log2 e), issues the
+// next tile's scores ahead of this tile's P V so that the softmax runs
+// under a product, takes blocks of 192 or 256 rows where that saves passes
+// over K and V (3 instead of 5 at ViT-L, 1 instead of 2 at so400m), keeps
+// K/V four tiles deep in flight, and never writes the [S, S] score tensor
+// to device memory.
 //
 // Dispatch: every head dim (a multiple of 8 up to 256) takes the wgmma
 // kernel, padded in shared memory to 16, 32, 64, 80, 128 or 256.

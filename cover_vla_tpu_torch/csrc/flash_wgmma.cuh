@@ -7,16 +7,18 @@
 // A block is two warpgroups (256 threads) and owns up to 128 query rows of
 // one (batch, kv-head) pair, 64 rows a warpgroup (three or four warpgroups
 // at the dense kernel's tower widths where that saves row tiles, see
-// wg_launch_rows). All threads copy the 64-key K and V tiles (and, in K3, the tile's mask bytes) into the ring;
-// one __syncthreads a tile hands the newest tile over and frees the oldest
-// stage. A warpgroup then issues Q K^T with both operands in shared memory
-// (depth steps of 16 over the head dim), runs an fp32 online softmax in
-// the base-2 domain on the accumulator fragment, packs the probabilities
-// into the register A operand and issues P V against the V tile read
-// through a transposed-B descriptor, so V is never transposed in shared
-// memory. The two warpgroups of a block and the blocks that share an SM
-// are not in step inside a tile, so one's softmax runs under another's
-// tensor-core work.
+// wg_launch_rows). All threads copy the 64-key K and V tiles (and, in K3,
+// the tile's mask bytes) into the ring; one __syncthreads a tile hands the
+// newest tile over and frees the oldest stage. A warpgroup issues Q K^T
+// with both operands in shared memory (depth steps of 16 over the head
+// dim), runs an fp32 online softmax in the base-2 domain on the
+// accumulator fragment, packs the probabilities into the register A
+// operand and issues P V against the V tile read through a transposed-B
+// descriptor, so V is never transposed in shared memory. With three stages
+// or more the loop is pipelined: the scores of the next tile and P V of
+// this one are issued back to back and the next tile's softmax runs under
+// P V. The running maximum is raised only when a tile exceeds it by 2^8,
+// so the accumulators are rarely rescaled.
 //
 // Head dims: any multiple of 8 up to 256, zero-padded to the next of
 // {16, 32, 64, 80, 128, 256} in shared memory only (Q, K and V alike, so
@@ -59,14 +61,20 @@ constexpr int kTileKeys = 64;            // keys per shared-memory tile
 // bytes between the column chunks of a 64-row tile: 64 x 16 and 16 more, so
 // that the 16-byte chunks of one row lie in different banks (see wgmma.cuh)
 constexpr int kChunkBytes = 64 * 16 + 16;
-// K2: 16 keys x 8 columns of bf16 ones, the B operand that makes the tensor
-// cores add up a row's rounded probabilities
-constexpr int kOnesBytes = 16 * 16;
 // the running maximum (base-2 domain) is raised, and the accumulators are
 // rescaled, only when a tile's maximum exceeds it by more than this; until
 // then probabilities are taken relative to the older maximum and can reach
 // 2^kRaise, which cancels in the final division
 constexpr float kRaise = 8.f;
+
+// Probe builds (scripts/torch_kernel_probe.py) switch parts of the kernel
+// off with -D flags to see what a launch's time is made of; their results
+// are wrong by construction and no entry point of the package defines them:
+//   CVLA_PROBE_NO_KV_READS  K/V tiles are zero-filled, not read
+//   CVLA_PROBE_NO_PRODUCTS  no wgmma is issued
+//   CVLA_PROBE_NO_SOFTMAX   the scores are packed as they are
+//   CVLA_PROBE_NO_STORE     nothing is stored
+//   CVLA_PROBE_WARPGROUPS   K2's tower widths take this many warpgroups
 
 struct WgParams {
   const __nv_bfloat16* q;  // [B, rows / groups, hkv * groups, d]
@@ -91,8 +99,7 @@ __host__ __device__ constexpr int wg_stages(int dp) {
 template <int DP, int NWG, bool EXACT>
 constexpr size_t wg_smem_bytes() {
   return size_t(NWG + 2 * wg_stages(DP)) * (DP / 8) * kChunkBytes +
-         (EXACT ? size_t(wg_stages(DP)) * NWG * kWgRows * kTileKeys
-                : kOnesBytes);
+         (EXACT ? size_t(wg_stages(DP)) * NWG * kWgRows * kTileKeys : 0);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -123,7 +130,6 @@ flash_wgmma_kernel(const WgParams p) {
   const uint32_t sK = sQ + kWarpgroups * Q_BYTES;   // [STAGES] K tiles
   const uint32_t sV = sK + STAGES * KV_BYTES;       // [STAGES] V tiles
   uint8_t* sMask = smem + kWarpgroups * Q_BYTES + 2 * STAGES * KV_BYTES;
-  const uint32_t sOnes = sV + STAGES * KV_BYTES;  // !EXACT: in the mask's place
 
   // the row tiles of one (batch, kv-head) pair are neighbours in the grid:
   // blocks that run at the same time read the same K and V, which stay in
@@ -186,7 +192,11 @@ flash_wgmma_kernel(const WgParams p) {
       for (int n = 0; n * RP < kTileKeys; ++n) {
         const int jj = ld_r + n * RP;
         if (kTileKeys % RP != 0 && jj >= kTileKeys) break;
+#ifdef CVLA_PROBE_NO_KV_READS
+        const bool valid = false;
+#else
         const bool valid = ld_on && j0 + jj < p.n_keys;
+#endif
         const uint32_t dst = stage * KV_BYTES + kv_dst + n * RP * 16;
         const size_t step = size_t(n * RP) * kv_row;
         cp_async_16(sK + dst, valid ? ks + step : p.k, valid);
@@ -215,11 +225,6 @@ flash_wgmma_kernel(const WgParams p) {
     }
   };
 
-  if constexpr (!EXACT) {
-    if (tid < kOnesBytes / 4)
-      reinterpret_cast<uint32_t*>(sMask)[tid] = 0x3f803f80u;  // bf16 1, 1
-  }
-
   const int n_tiles = (p.n_keys + kTileKeys - 1) / kTileKeys;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -241,11 +246,9 @@ flash_wgmma_kernel(const WgParams p) {
   }
 
   float m_i[2] = {kBigNeg, kBigNeg};  // running maximum, base-2 domain
-  // the row sum: EXACT adds this thread's share in l_i[h]; otherwise the
-  // tensor cores add the rounded probabilities (P times a column of ones)
-  // into l_acc, rows h at l_acc[2 * h]
+  // this thread's share of the row sum: of the probabilities as they are
+  // (EXACT) or as rounded to bf16 for P V (K2)
   float l_i[2] = {0.f, 0.f};
-  float l_acc[4] = {0.f, 0.f, 0.f, 0.f};
   float o[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
@@ -258,11 +261,16 @@ flash_wgmma_kernel(const WgParams p) {
   // S = Q K^T of one tile: 64 rows x 64 keys, depth DP in steps of 16
   auto issue_scores = [&](float (&s)[kTileKeys / 2], int stage) {
     const uint32_t tk = sK + stage * KV_BYTES;
+#ifdef CVLA_PROBE_NO_PRODUCTS
+#pragma unroll
+    for (int i = 0; i < kTileKeys / 2; ++i) s[i] = float(i + int(tk & 7u));
+#else
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss_n64(s, wgmma_desc(sQw + kk * 2 * Q_CHUNK, Q_CHUNK, 128),
                    wgmma_desc(tk + kk * 2 * KV_CHUNK, KV_CHUNK, 128), kk > 0);
+#endif
     wgmma_commit();
   };
 
@@ -270,6 +278,9 @@ flash_wgmma_kernel(const WgParams p) {
   // probabilities in place and updates alpha, m_i (and EXACT's l_i);
   // s[4 * j + 2 * h + e] is row h, key 8 * j + 2 * t + e
   auto softmax_tile = [&](float (&s)[kTileKeys / 2], int tile, int stage) {
+#ifdef CVLA_PROBE_NO_SOFTMAX
+    return;
+#endif
     const int j0 = tile * kTileKeys;
     const bool ragged = j0 + kTileKeys > p.n_keys;
     const uint8_t* tm = sMask + stage * MASK_BYTES;
@@ -328,12 +339,14 @@ flash_wgmma_kernel(const WgParams p) {
         s[4 * j + 2 * h + 1] = p1;
         rs += p0 + p1;
       }
-      if constexpr (EXACT) l_i[h] = l_i[h] * alpha[h] + rs;
+      // K2's share is added in pack_probs, from the rounded values
+      l_i[h] = l_i[h] * alpha[h] + (EXACT ? rs : 0.f);
     }
   };
 
   // the probabilities as the register A operand of P V: rounded to bf16
-  // (K2), or split into hi = bf16(p) and lo = bf16(p - hi) (EXACT)
+  // and added to the row sum (K2), or split into hi = bf16(p) and
+  // lo = bf16(p - hi) (EXACT)
   auto pack_probs = [&](const float (&s)[kTileKeys / 2]) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -342,11 +355,12 @@ flash_wgmma_kernel(const WgParams p) {
         const float p0 = s[4 * j + 2 * h], p1 = s[4 * j + 2 * h + 1];
         const uint32_t hi = pack_bf16x2(p0, p1);
         pa[j / 2][(j % 2) * 2 + h] = hi;
-        if constexpr (EXACT) {
-          const float h0 = __uint_as_float(hi << 16);
-          const float h1 = __uint_as_float(hi & 0xffff0000u);
+        const float h0 = __uint_as_float(hi << 16);
+        const float h1 = __uint_as_float(hi & 0xffff0000u);
+        if constexpr (EXACT)
           pb[j / 2][(j % 2) * 2 + h] = pack_bf16x2(p0 - h0, p1 - h1);
-        }
+        else
+          l_i[h] += h0 + h1;
       }
     }
   };
@@ -361,25 +375,28 @@ flash_wgmma_kernel(const WgParams p) {
           o[4 * j + 2 * h] *= alpha[h];
           o[4 * j + 2 * h + 1] *= alpha[h];
         }
-        l_acc[2 * h] *= alpha[h];
-        l_acc[2 * h + 1] *= alpha[h];
       }
     }
   };
 
   // O += P V: depth 64 keys in steps of 16, V through the transposed-B
-  // descriptor; K2 also adds the row sums (P times ones)
+  // descriptor
   auto issue_pv = [&](int stage) {
     const uint32_t tv = sV + stage * KV_BYTES;
+#ifdef CVLA_PROBE_NO_PRODUCTS
+#pragma unroll
+    for (int kc = 0; kc < kTileKeys / 16; ++kc)  // keeps P's packing alive
+      o[kc] += __uint_as_float((pa[kc][0] ^ pa[kc][1] ^ pa[kc][2] ^ pa[kc][3] ^
+                                (EXACT ? pb[kc][0] ^ pb[kc][3] : 0u)) &
+                               0x3fffffffu) + float(tv & 1u);
+#else
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < kTileKeys / 16; ++kc) {
       wgmma_rs<DP>(o, pa[kc], tv + kc * 256, KV_CHUNK);
-      if constexpr (EXACT)
-        wgmma_rs<DP>(o, pb[kc], tv + kc * 256, KV_CHUNK);
-      else
-        wgmma_rs_n8(l_acc, pa[kc], wgmma_desc(sOnes, 128, 128));
+      if constexpr (EXACT) wgmma_rs<DP>(o, pb[kc], tv + kc * 256, KV_CHUNK);
     }
+#endif
     wgmma_commit();
   };
 
@@ -404,11 +421,9 @@ flash_wgmma_kernel(const WgParams p) {
       pack_probs(s);
       rescale();
       wgmma_pin(o);
-      wgmma_pin(l_acc);
       issue_pv(stage);
       wgmma_wait<0>();
       wgmma_pin(o);
-      wgmma_pin(l_acc);
     }
   } else {
     // Pipelined: in iteration t the scores of tile t + 1 and then P V of
@@ -444,7 +459,6 @@ flash_wgmma_kernel(const WgParams p) {
 
       rescale();  // by the alpha of this tile's softmax; nothing in flight
       wgmma_pin(o);
-      wgmma_pin(l_acc);
       issue_scores(s, next);
       issue_pv(stage);
       wgmma_wait<1>();  // the scores
@@ -452,14 +466,16 @@ flash_wgmma_kernel(const WgParams p) {
       if (tile + 1 < n_tiles) softmax_tile(s, tile + 1, next);
       wgmma_wait<0>();  // P V
       wgmma_pin(o);
-      wgmma_pin(l_acc);
-      pack_probs(s);
+      if (tile + 1 < n_tiles) pack_probs(s);
     }
   }
   cp_async_wait_group<0>();
   if (!wg_active) return;
+#ifdef CVLA_PROBE_NO_STORE
+  if (o[0] != 1.2345e30f) return;
+#endif
 
-  // epilogue: the row sum (EXACT: of the quad's shares); one division a row.
+  // epilogue: the quad's shares make the row sum; one division a row.
   // fp32 results (EXACT with out_f32) go straight to device memory, 32
   // bytes a quad. bf16 results go through the warpgroup's own Q tile (no
   // product reads it any more) in the tile layout and leave as 16-byte
@@ -467,12 +483,9 @@ flash_wgmma_kernel(const WgParams p) {
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float l = l_acc[2 * h];
-    if constexpr (EXACT) {
-      l = l_i[h];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-    }
+    float l = l_i[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[h] = 1.f / fmaxf(l, 1e-37f);
   }
   if (EXACT && p.out_f32 != nullptr) {
@@ -549,6 +562,9 @@ int wg_launch_rows(const WgParams& p, int batch_heads, cudaStream_t stream) {
     auto tiles = [&](int nwg) {
       return (p.rows + kWgRows * nwg - 1) / (kWgRows * nwg);
     };
+#ifdef CVLA_PROBE_WARPGROUPS
+    return wg_launch<DP, CVLA_PROBE_WARPGROUPS, EXACT>(p, batch_heads, stream);
+#endif
     if (tiles(3) < tiles(2) && tiles(4) >= tiles(3))
       return wg_launch<DP, 3, EXACT>(p, batch_heads, stream);
     if (tiles(4) < tiles(2))

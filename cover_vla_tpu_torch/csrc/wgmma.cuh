@@ -133,20 +133,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a_desc,
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 
-// D[64 x 8] += A[64 x 16] * B[16 x 8]: A from registers, B in shared
-// memory with the N dimension contiguous (transposed-B descriptor)
-__device__ __forceinline__ void wgmma_rs_n8(float* d, const uint32_t* a,
-                                            uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
-}
-
 // D[64 x 16] += A[64 x 16] * B[16 x 16]: A from registers, B in shared
 // memory with the N dimension contiguous (transposed-B descriptor)
 __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
