@@ -25,16 +25,16 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
-# no --use_fast_math: the kernels use expf and round-to-nearest bf16
-# conversions so they stay within tolerance of their plain twins
+# no --use_fast_math: the kernels keep IEEE divisions and round-to-nearest
+# bf16 conversions so they stay within tolerance of their plain twins
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k_suf, v_suf, k_pre, v_pre, prefix_pad, suffix_mask, out,
-    # B, N, S, Hkv, G, P, D, scale, stream
-    "cvla_shared_prefix_gqa": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # B, N, S, Hkv, G, P, D, split, scale, stream
+    "cvla_shared_prefix_gqa": [_P] * 8 + [_I] * 8 + [_F, _P],
     # q, k, v, out, B, Sq, Skv, H, D, scale, stream
     "cvla_mha_dense": [_P] * 4 + [_I] * 5 + [_F, _P],
     # q, k, v, mask, out, B, Sq, Skv, Hkv, G, D, scale, out_f32, stream

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the warpgroup attention kernels:
 // shared-memory matrix descriptors, the asynchronous warpgroup products
 // (wgmma.mma_async) with their fences, and asynchronous global -> shared
-// copies (cp.async). Used by flash_wgmma.cuh.
+// copies (cp.async). Used by flash_wgmma.cuh and decode_wgmma.cuh.
 //
 // Shared-memory tile layout ("chunk-column-major"), one layout for every
 // operand. A tile of up to 64 rows by C columns of bf16 is stored as
@@ -45,6 +45,22 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr,
   return uint64_t((smem_addr & 0x3ffffu) >> 4) |
          (uint64_t(leading_bytes >> 4) << 16) |
          (uint64_t(stride_bytes >> 4) << 32);
+}
+
+// 128-byte-swizzle matrix descriptor (layout type 1 in bits 62-63), the
+// layout that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128
+// bytes (64 bf16), the 16-byte chunks of row r permuted by r mod 8, eight
+// rows (1024 bytes, aligned) one swizzle atom. Used by decode_wgmma.cuh.
+//   K-major (Q and K in S = Q K^T): stride byte offset 1024 between groups
+//   of 8 rows, the leading byte offset unused (16); depth step kk of 16
+//   columns starts 32 * (kk mod 4) bytes into its 64-column slab.
+//   MN-major (V in O = P V, transposed-B form): 1024 between groups of 8
+//   keys along the reduction, the leading byte offset the distance to the
+//   next 64-column slab.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t smem_addr,
+                                                     uint32_t leading_bytes,
+                                                     uint32_t stride_bytes) {
+  return wgmma_desc(smem_addr, leading_bytes, stride_bytes) | (1ull << 62);
 }
 
 // orders the warpgroup's register and shared-memory accesses before the
@@ -130,6 +146,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a_desc,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[32 x 16]^T, both operands in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a_desc,
+                                             uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 

@@ -16,20 +16,27 @@ The twins compute what the kernels compute with the same rounding points:
 inputs rounded to bf16, fp32 scores and softmax, probabilities rounded to
 bf16 before the PV product, and division by the sum of the rounded
 probabilities at the end. (The kernels take their running maximum over
-key tiles, the twins over the whole row, and K2 and K3 compute 2^x on
-scores pre-scaled by log2 e, so p can round one bf16 ulp apart.) K3 keeps its probabilities in fp32 (see `prefix_gqa_plain`).
+key tiles, K1 over each part of its key split, the twins over the whole
+row, and the kernels compute 2^x on scores pre-scaled by log2 e, so p can
+round one bf16 ulp apart.) K3 keeps its probabilities in fp32 (see
+`prefix_gqa_plain`).
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
 from cover_vla_tpu_torch.ops.attention import BIG_NEG
 
-# which body under csrc/ a kernel's C entry point dispatches to: "wgmma"
-# is flash_wgmma.cuh (warpgroup products, every head dim), "mma_sync" is
-# flash_rows.cuh
-kernel_designs = {"shared_prefix_gqa": "mma_sync", "mha_dense": "wgmma",
+# which body under csrc/ a kernel's C entry point dispatches to:
+# "wgmma_tma_split" is decode_wgmma.cuh (warpgroup products fed by a TMA
+# ring, the prefix keys split over a thread-block cluster), "wgmma" is
+# flash_wgmma.cuh (warpgroup products over a cp.async ring)
+kernel_designs = {"shared_prefix_gqa": "wgmma_tma_split", "mha_dense": "wgmma",
                   "prefix_gqa": "wgmma"}
 
 # launches of each kernel since the last reset (CPU twin calls not counted)
@@ -74,6 +81,68 @@ def _route(name: str, device: torch.device) -> bool:
 # K1: shared-prefix decode attention
 # ---------------------------------------------------------------------------
 
+DECODE_BLOCK_ROWS = 128     # query rows of one block (two warpgroups)
+DECODE_TILE_KEYS = 64       # prefix keys of one ring stage
+DECODE_MAX_SPLIT = 8        # blocks of a cluster (the portable size)
+DECODE_FIXED_TILES = 3      # a block's fixed work, in key tiles
+DECODE_COMBINE_TILES = 0.5  # the combine's cost per part, in key tiles
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How K1 cuts one launch: `split` parts of the prefix keys, each a
+    block of a cluster and `tiles_per_part` 64-key tiles long (the last
+    part also takes the suffix keys), over `row_blocks` 128-row blocks a
+    (batch, kv-head) pair."""
+    split: int
+    tiles_per_part: int
+    row_blocks: int
+    blocks: int
+    waves: float
+
+    def parts(self, n_keys: int) -> list[tuple[int, int, bool]]:
+        """Each part's prefix keys [lo, hi) and whether it runs the suffix
+        keys (the last part does)."""
+        step = self.tiles_per_part * DECODE_TILE_KEYS
+        los = range(0, n_keys, step)
+        return [(lo, min(lo + step, n_keys), i == len(los) - 1)
+                for i, lo in enumerate(los)]
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(batch_heads: int, rows: int, n_keys: int,
+                sms: int = H100_SMS) -> DecodePlan:
+    """K1's key split for `batch_heads` (batch, kv-head) pairs of `rows`
+    query rows over `n_keys` prefix keys on a card of `sms` SMs: of the
+    splits s <= 8 that leave no part empty, the one that minimises
+    ceil(R s / sms) * (ceil(T / s) + 3) + (s > 1) * s / 2, R the 128-row
+    blocks and T the 64-key tiles (waves of blocks times the tiles a block
+    runs plus its fixed work, plus the combine of the parts; both costs in
+    key tiles, as probe builds measured them on the H100), the smaller s
+    on a tie."""
+    row_blocks = math.ceil(rows / DECODE_BLOCK_ROWS)
+    n_blocks = batch_heads * row_blocks
+    tiles = math.ceil(n_keys / DECODE_TILE_KEYS)
+    best = None
+    for split in range(1, min(DECODE_MAX_SPLIT, tiles) + 1):
+        per = math.ceil(tiles / split)
+        if math.ceil(tiles / per) != split:
+            continue                          # a part would be empty
+        cost = (math.ceil(n_blocks * split / sms) * (per + DECODE_FIXED_TILES)
+                + (split > 1) * DECODE_COMBINE_TILES * split)
+        if best is None or cost < best[0]:
+            best = (cost, split, per)
+    _, split, per = best
+    return DecodePlan(split=split, tiles_per_part=per, row_blocks=row_blocks,
+                      blocks=n_blocks * split,
+                      waves=n_blocks * split / sms)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def shared_prefix_gqa_plain(q, k_suf, v_suf, k_pre, v_pre, prefix_pad,
                             suffix_mask) -> torch.Tensor:
@@ -104,7 +173,9 @@ def shared_prefix_gqa_plain(q, k_suf, v_suf, k_pre, v_pre, prefix_pad,
 def shared_prefix_gqa(q, k_suf, v_suf, k_pre, v_pre, prefix_pad,
                       suffix_mask) -> torch.Tensor:
     """K1 (shapes as in `shared_prefix_gqa_plain`). On CUDA all float
-    inputs must be contiguous bf16 and the masks contiguous bool."""
+    inputs must be contiguous bf16 with a head dim that is a multiple of 8,
+    at most 256, the masks contiguous bool, 1 <= S <= 32 and P >= 1; the
+    key split comes from `decode_plan`."""
     if not _route("shared_prefix_gqa", q.device):
         return shared_prefix_gqa_plain(q, k_suf, v_suf, k_pre, v_pre,
                                        prefix_pad, suffix_mask)
@@ -128,14 +199,17 @@ def shared_prefix_gqa(q, k_suf, v_suf, k_pre, v_pre, prefix_pad,
     _check(suffix_mask.shape == (b, s, s), f"suffix_mask {tuple(suffix_mask.shape)}")
     _check(d % 8 == 0 and d <= 256, f"head dim {d} (multiple of 8, <= 256)")
     _check(1 <= s <= 32, f"suffix length {s} (1..32)")
+    _check(p_len >= 1, "no prefix keys")
     from cover_vla_tpu_torch import _build
     lib = _build.load().lib
+    plan = decode_plan(b * hkv, n * s * (hq // hkv), p_len,
+                       _sm_count(q.device.index or 0))
     out = torch.empty((b, n, s, hq * d), dtype=bf, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _run(lib.cvla_shared_prefix_gqa, q.data_ptr(), k_suf.data_ptr(),
          v_suf.data_ptr(), k_pre.data_ptr(), v_pre.data_ptr(),
          prefix_pad.data_ptr(), suffix_mask.data_ptr(), out.data_ptr(),
-         b, n, s, hkv, hq // hkv, p_len, d, d ** -0.5, stream)
+         b, n, s, hkv, hq // hkv, p_len, d, plan.split, d ** -0.5, stream)
     launch_counts["shared_prefix_gqa"] += 1
     return out
 

@@ -77,11 +77,43 @@ def test_gqa_and_mha_eager_match(dtype):
         attention.mha_attention(tq, tkh, tvh, backend="xla")
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_shared_prefix_eager_matches(dtype):
+def _k1_inputs(rng, b, n, s, g, hkv, d, p, n_valid=None, empty_rows=False):
+    """K1's inputs with G query heads per kv head: the prefix of batch row
+    i real up to n_valid[i % len] (all of it by default), the action
+    expert's suffix mask (the state token attends itself, the actions the
+    state and each other). `empty_rows`: in the last batch row no prefix
+    key is real and the state token attends nothing, so its G*N rows have
+    no attended key at all."""
+    hq = g * hkv
+    q = rng.standard_normal((b, n, s, hq, d)).astype(np.float32)
+    ks, vs = (rng.standard_normal((b, n, s, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    kp, vp = (rng.standard_normal((b, p, hkv, d)).astype(np.float32)
+              for _ in range(2))
+    pad = np.ones((b, p), bool)
+    for i in range(b):
+        pad[i, (n_valid or [p])[i % len(n_valid or [p])]:] = False
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    smask = np.broadcast_to((j == 0) | ((i >= 1) & (j >= 1)), (b, s, s)).copy()
+    if empty_rows:
+        pad[-1] = False
+        smask[-1, 0] = False
+    return q, ks, vs, kp, vp, pad, smask
+
+
+@pytest.mark.parametrize("dtype,empty_rows", [("fp32", False), ("bf16", False),
+                                              ("fp32", True), ("bf16", True)])
+def test_shared_prefix_eager_matches(dtype, empty_rows):
+    """Port vs JAX eager; with `empty_rows` some query rows attend no key
+    and are the uniform softmax over their own P + S keys, which the
+    kernel's plain twin must give as well."""
     atol = DTYPES[dtype][3]
     rng = np.random.default_rng(1)
-    inputs = _suffix_inputs(rng, 2, 3, 5, 4, 1, 16, 11)
+    if empty_rows:
+        inputs = _k1_inputs(rng, 2, 3, 5, 4, 1, 16, 11, empty_rows=True)
+        assert not (inputs[5][-1].any() or inputs[6][-1, 0].any())
+    else:
+        inputs = _suffix_inputs(rng, 2, 3, 5, 4, 1, 16, 11)
     jx = [_pair(x, dtype) for x in inputs[:5]]
     masks = inputs[5:]
     ref = jgemma._shared_prefix_gqa(*(j for j, _ in jx),
@@ -89,6 +121,10 @@ def test_shared_prefix_eager_matches(dtype):
     got = gemma._shared_prefix_gqa(*(t for _, t in jx),
                                    *(torch.from_numpy(m) for m in masks))
     np.testing.assert_allclose(_np(got), _np(ref), atol=atol, rtol=0)
+    if empty_rows:
+        twin = cuda_attention.shared_prefix_gqa_plain(
+            *(t for _, t in jx), *(torch.from_numpy(m) for m in masks))
+        np.testing.assert_allclose(_np(twin), _np(ref), atol=2e-2, rtol=0)
 
 
 @pytest.mark.parametrize("b,n,s,hq,hkv,d,p", [(2, 3, 5, 4, 1, 16, 11),
@@ -306,3 +342,45 @@ def test_prefix_gqa_tile_edges_on_card(cuda_device, sq, skv, n_pad, d):
     got16 = cuda_attention.prefix_gqa(pq, pk, pv, pmask)
     torch.cuda.synchronize()
     assert (got16.float() - ref).abs().max().item() <= 2e-2
+
+
+# K1 at the edges of its design: rows one under, at and one over the
+# 64-row warpgroup and the 128-row block (S = G = 1, one row a candidate,
+# so a warpgroup spans 64 candidates); P one under, at and one over the
+# 64-key tile and the split boundaries (one batch row splits 383-385 keys
+# into 3 or 4 parts, 1500 into 6, 2000 into 8), and P under one tile;
+# S = 1 and 32; a warpgroup spanning 3 or 4 candidates (S G = 24); G = 1
+# with Hkv = 2; the padded head dims; rows with no attended key.
+K1_EDGES = {
+    "rows63": (2, 63, 1, 1, 1, 256, 70), "rows64": (2, 64, 1, 1, 1, 256, 70),
+    "rows65": (2, 65, 1, 1, 1, 256, 70), "rows127": (2, 127, 1, 1, 1, 256, 70),
+    "rows128": (2, 128, 1, 1, 1, 256, 70), "rows129": (2, 129, 1, 1, 1, 256, 70),
+    "p40": (2, 3, 5, 8, 1, 256, 40), "p63": (2, 3, 5, 8, 1, 256, 63),
+    "p64": (2, 3, 5, 8, 1, 256, 64), "p65": (2, 3, 5, 8, 1, 256, 65),
+    "p127": (2, 3, 5, 8, 1, 256, 127), "p128": (2, 3, 5, 8, 1, 256, 128),
+    "p129": (2, 3, 5, 8, 1, 256, 129), "p383": (1, 5, 5, 8, 1, 256, 383),
+    "p384": (1, 5, 5, 8, 1, 256, 384), "p385": (1, 5, 5, 8, 1, 256, 385),
+    "p1500": (1, 5, 5, 8, 1, 256, 1500), "p2000": (1, 5, 5, 8, 1, 256, 2000),
+    "s1": (2, 9, 1, 8, 1, 256, 100), "s32": (2, 3, 32, 2, 1, 256, 100),
+    "three_cands": (2, 7, 3, 8, 1, 256, 150),
+    "g1_hkv2": (2, 6, 5, 1, 2, 256, 90),
+    "d64": (2, 4, 5, 8, 1, 64, 130), "d72": (2, 4, 5, 8, 1, 72, 130),
+    "d128": (2, 4, 5, 8, 1, 128, 130), "d256": (2, 4, 5, 8, 1, 256, 130),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty_rows", [False, True])
+@pytest.mark.parametrize("case", sorted(K1_EDGES))
+def test_shared_prefix_gqa_edges_on_card(cuda_device, case, empty_rows):
+    b, n, s, g, hkv, d, p = K1_EDGES[case]
+    rng = np.random.default_rng(9)
+    inputs = _k1_inputs(rng, b, n, s, g, hkv, d, p, n_valid=[p, p * 2 // 3],
+                        empty_rows=empty_rows)
+    tx = [torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+          for x in inputs[:5]]
+    masks = [torch.from_numpy(m).to(cuda_device) for m in inputs[5:]]
+    got = cuda_attention.shared_prefix_gqa(*tx, *masks)
+    ref = cuda_attention.shared_prefix_gqa_plain(*tx, *masks)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2

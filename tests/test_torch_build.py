@@ -63,8 +63,8 @@ def test_parser_tells_the_kinds_apart():
 
 
 @pytest.mark.parametrize("name", ["attention.cu", "dense_wgmma.cu",
-                                  "prefix_attention.cu", "flash_rows.cuh",
-                                  "flash_wgmma.cuh", "wgmma.cuh"])
+                                  "prefix_attention.cu", "decode_wgmma.cuh",
+                                  "flash_wgmma.cuh", "wgmma.cuh", "tma.cuh"])
 def test_source_is_part_of_the_build(name):
     listed = {os.path.basename(p) for p in _build.sources()}
     assert name in listed
