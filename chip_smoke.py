@@ -30,8 +30,22 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      5x8 protocol over the fake environment: evaluate_suite_batched with 4
      lockstep episodes, the same pipelined over two cohorts, one
      CoVerEvaluator episode through CoVerEngine, and the injected-score
-     mode against the fused step.
-The last two lines are the card's `nvidia-smi` name/power line and
+     mode against the fused step;
+  6. serving at full width: the int8 route card vs CPU (weight and
+     activation grids bit-equal, torch._int_mm's int32 accumulators equal
+     to the exact CPU product, also at 1, 8, 16 and 17 rows) and timed
+     against the bf16 GEMM in both weight layouts; the int8_full verified
+     step (w8a8 policy and verifier backbone) in both cells under the
+     fast and all-kernel configs, in turns with bf16 fast: launch counts,
+     every candidate and score within the JAX package's int8 bounds, step
+     times, a profile; pi0-FAST (PaliGemma 2B + so400m) greedy
+     generation at B = 1 and 4, deterministic and invariant to padded
+     prompt ids, prefill and per-token times; four served policies (the
+     factory's int8 pi0 and pi0-FAST, an int8 pi0 under the fast config,
+     the int8_full CoVer engine) answering infer x3, reset, infer through
+     the server's verb dispatch, and one localhost websocket round trip
+     when websockets and msgpack import.
+Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
 
@@ -636,9 +650,10 @@ def small_reference_phase(torch, dev):
         f"(bound 1e-4), success/steps/selected_instructions equal")
 
 
-def profile_step(torch, card, cell, run):
+def profile_step(torch, card, cell, run, label="fast"):
     """Device busy time of one step (union of the device intervals of its
-    kernels and copies, from torch.profiler) against its wall time, and
+    kernels and copies, from torch.profiler) against its wall time, the
+    device time of its GEMMs (cuBLAS/cuBLASLt kernels, bf16 and int8), and
     the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -658,11 +673,17 @@ def profile_step(torch, card, cell, run):
         end_us = max(end_us, stop)
         total, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + stop - start, count + 1)
-    log(f"profile {cell} fast: wall {wall_ms:.2f} ms, device busy "
+    gemm = [(t, c) for name, (t, c) in by_name.items()
+            if re.search(r"gemm|nvjet|cutlass|xmma|s8s8|imma", name, re.I)]
+    gemm_ms = sum(t for t, _ in gemm) / 1e3
+    log(f"profile {cell} {label}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms (idle share {1 - busy_us / 1e3 / wall_ms:.3f}), "
-        f"{len(events)} device ops | {card}")
+        f"{len(events)} device ops, GEMMs {gemm_ms:.3f} ms in "
+        f"{sum(c for _, c in gemm)} launches | {card}")
     for name, (t_us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {t_us / 1e3:9.3f} ms  {count:6d}x  {name[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, ops=len(events),
+                gemm_ms=gemm_ms)
 
 
 def init_full_width(torch, dev, pcfg, vcfg):
@@ -810,6 +831,22 @@ def main_path_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
     return launches
 
 
+def verifier_scores(torch, dev, vcfg, vparams, raw, vtoks, traj):
+    """The fused step's stage 6 alone: [E, C] scores of trajectories
+    [E, C, T, 7] under the instruction tokens, for raw frames [E, H, W, 3]."""
+    from cover_vla_tpu_torch.engine.verified_step import _verifier_image
+    from cover_vla_tpu_torch.models import verifier
+    with torch.no_grad():
+        vimg = _verifier_image(torch.as_tensor(raw, device=dev),
+                               vcfg.vision.image_size)
+        feats = verifier.extract_features(
+            vparams, vcfg, vimg, torch.as_tensor(vtoks, device=dev).long())
+        fused_it, fused_ac = verifier.ensemble_embed(
+            vparams, vcfg, feats, traj.reshape(-1, *traj.shape[2:]))
+        return torch.einsum("ed,ecd->ec", fused_it, fused_ac.reshape(
+            traj.shape[0], traj.shape[1], -1))
+
+
 def episode_phase(torch, card, dev, pcfg, vcfg, pp, vp):
     """Closed-loop evaluation at full width under the all-kernel configs:
     the reference 5x8 protocol over the fake environment, 12 ticks = 3
@@ -818,13 +855,11 @@ def episode_phase(torch, card, dev, pcfg, vcfg, pp, vp):
     from cover_vla_tpu_torch.data.stats import DatasetStatistics
     from cover_vla_tpu_torch.data.tokenizer import HashTokenizer
     from cover_vla_tpu_torch.engine import BatchedCoVerEngine, CoVerEngine
-    from cover_vla_tpu_torch.engine.verified_step import _verifier_image
     from cover_vla_tpu_torch.eval.adapters import BridgeSimplerAdapter
     from cover_vla_tpu_torch.eval.evaluator import (
         CoVerEvaluator, EvalConfig, evaluate_suite_batched)
     from cover_vla_tpu_torch.eval.fake_env import get_image_from_obs_dict
     from cover_vla_tpu_torch.eval.rephrase import load_rephrases
-    from cover_vla_tpu_torch.models import verifier
     from cover_vla_tpu_torch.ops import cuda_attention as ca
 
     RecordingEnv = recording_env_class()
@@ -949,19 +984,11 @@ def episode_phase(torch, card, dev, pcfg, vcfg, pp, vp):
     vtoks, _ = toks["verifier_tokenizer"].encode_batch(
         tasks, vc.text.context_length)
 
-    @torch.no_grad()
-    def verifier_scores(exec_chunks, proposal):
-        """The fused step's stages 6: scores of all candidates under the
+    def injected_scores(exec_chunks, proposal):
+        """The fused step's stage 6: scores of all candidates under the
         current instruction, [E, K*N]."""
-        traj = proposal.trajectories
-        vimg = _verifier_image(torch.from_numpy(imgs).to(dev),
-                               vc.vision.image_size)
-        feats = verifier.extract_features(
-            vp, vc, vimg, torch.from_numpy(vtoks).to(dev).long())
-        fused_it, fused_ac = verifier.ensemble_embed(
-            vp, vc, feats, traj.reshape(-1, *traj.shape[2:]))
-        return torch.einsum("ed,ecd->ec", fused_it, fused_ac.reshape(
-            traj.shape[0], traj.shape[1], -1)).cpu().numpy()
+        return verifier_scores(torch, dev, vc, vp, imgs, vtoks,
+                               proposal.trajectories).cpu().numpy()
 
     fused = make_engine("verifier")
     t0 = time.perf_counter()
@@ -974,7 +1001,7 @@ def episode_phase(torch, card, dev, pcfg, vcfg, pp, vp):
         f"{(t2 - t1) * 1e3:.2f} ms | {card}")
     chunks = {"fused": [first_action] + [fused.step(imgs, props)
                                          for _ in range(chunk - 1)]}
-    injected = make_engine("injected", verifier_scores)
+    injected = make_engine("injected", injected_scores)
     (acts, wall, counts) = counted(
         "injected", 1,
         lambda: [injected.step(imgs, props) for _ in range(chunk)])
@@ -988,6 +1015,441 @@ def episode_phase(torch, card, dev, pcfg, vcfg, pp, vp):
         f"launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving (int8 w8a8, pi0-FAST, the policy wrappers, the server)
+# ---------------------------------------------------------------------------
+
+# the JAX package's own int8-vs-bf16 bounds (tests/test_quant.py:97, :132):
+# max |d action| / RMS(bf16 actions), max |d score| / bf16 score span
+INT8_ACTION_REL = 0.15
+INT8_SCORE_REL = 0.25
+INT8_TOPS = 1979e12           # H100 SXM dense int8 tensor cores
+
+
+def int8_exactness(torch, card, dev, pp, vp):
+    """The int8 route card vs CPU: grids bit-equal, `_int_mm`'s int32
+    accumulators equal to the exact CPU product at the main path's shapes
+    and at the padded row counts; `_int_mm` timed against the bf16 GEMM of
+    the same shape, for both weight layouts."""
+    from cover_vla_tpu_torch.ops import quant
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pg, ex = pp["paligemma"]["layers"], pp["expert"]["layers"]
+    fc1 = vp["backbone"]["vision"]["blocks"]["mlp"]["fc1"]["kernel"]
+    for name, w in (("paligemma q[0] 2048x2048", pg["q"][0]),
+                    ("ViT-L fc1[0] 1024x4096", fc1[0])):
+        q_card, s_card = quant.quantize_weight(w)
+        q_cpu, s_cpu = quant.quantize_weight(w.cpu())
+        if not (torch.equal(q_card.cpu(), q_cpu)
+                and torch.equal(s_card.cpu(), s_cpu)):
+            raise AssertionError(f"int8 grid of {name}: card != CPU")
+    x = torch.randn((5248, 2048), generator=gen, device=dev).to(bf) * 3
+    xq, xs = quant.quant_act(x)
+    xq_cpu, xs_cpu = quant.quant_act(x.cpu())
+    if not (torch.equal(xq.cpu(), xq_cpu) and torch.equal(xs.cpu(), xs_cpu)):
+        raise AssertionError("activation quant: card != CPU")
+    log("int8 grids: paligemma q[0], ViT-L fc1[0] and a 5248x2048 bf16 "
+        "activation quantized on the card and on the CPU: int8 tensors and "
+        "fp32 scales bit-equal")
+
+    weights = {"pg_q": quant.quantize_weight(pg["q"][0]),
+               "ex_gate": quant.quantize_weight(ex["gate"][0]),
+               "ex_down": quant.quantize_weight(ex["down"][0])}
+    # rows: E16's prefill (16 x 328) and decode (16 x 16 x 5) rows, and
+    # row counts under, at and over _int_mm's minimum of 17
+    acc_shapes = [("prefill E16", 5248, "pg_q"), ("expert gate E16", 1280,
+                                                  "ex_gate"),
+                  ("expert down E16", 1280, "ex_down")] + [
+        (f"M={m}", m, "pg_q") for m in (1, 8, 16, 17)]
+    for tag, m, wname in acc_shapes:
+        wq, _ = weights[wname]
+        a = torch.randn((m, wq.shape[0]), generator=gen, device=dev).to(bf)
+        aq, _ = quant.quant_act(a)
+        quant.reset_int_mm_calls()
+        got = quant.int8_accumulate(aq, wq)
+        if quant.int_mm_calls["int_mm"] != 1:
+            raise AssertionError(f"{tag}: _int_mm was not called")
+        ref = quant.int8_accumulate(aq.cpu(), wq.cpu())
+        if not torch.equal(got.cpu(), ref):
+            raise AssertionError(f"int8 accumulators {tag}: card != CPU "
+                                 f"(max diff {(got.cpu() - ref).abs().max()})")
+    log(f"int8 accumulators: _int_mm (cuBLASLt, int32) equals the exact CPU "
+        f"product at {', '.join(f'{t} ({m}x{weights[w][0].shape[0]}x'f'{weights[w][0].shape[1]})' for t, m, w in acc_shapes)}")
+
+    # (m, k, n): E16 prefill q and gate, E16 decode gate/down, ViT-L fc1 at
+    # E16 (16 x 576 rows), the 5x8 protocol's decode gate (8 x 5 x 5 rows)
+    timing = dict(prefill_q=(5248, 2048, 2048), prefill_gate=(5248, 2048, 16384),
+                  expert_gate=(1280, 1024, 4096), expert_down=(1280, 4096, 1024),
+                  vit_l_fc1=(9216, 1024, 4096), protocol_expert_gate=(200, 1024, 4096))
+    out = {}
+    for tag, (m, k, n) in timing.items():
+        a8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        b_col = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                              dtype=torch.int8).t()
+        b_row = b_col.contiguous()
+        abf = torch.randn((m, k), generator=gen, device=dev).to(bf)
+        wbf = torch.randn((k, n), generator=gen, device=dev).to(bf)
+        wq, ws = quant.quantize_weight(wbf)
+        launches = 20 if m * n < 2e7 else 5
+        col = graph_ms(torch, torch._int_mm, [(a8, b_col)], launches)
+        row = graph_ms(torch, torch._int_mm, [(a8, b_row)], launches)
+        mm = graph_ms(torch, torch.matmul, [(abf, wbf)], launches)
+        w8a8 = graph_ms(torch, lambda x: quant.int8_matmul(
+            *quant.quant_act(x), wq, ws), [(abf,)], launches)
+        ops = 2.0 * m * k * n
+        bound8 = max((m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S,
+                     ops / INT8_TOPS) * 1e3
+        bound16 = max(2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S,
+                      ops / BF16_FLOPS) * 1e3
+        out[tag] = dict(int_mm_col=col, int_mm_row=row, bf16=mm, w8a8=w8a8)
+        log(f"int8 GEMM {tag} {m}x{k}x{n} (in a graph): _int_mm column-major "
+            f"B {col:.4f} ms, row-major B {row:.4f} ms, bf16 matmul "
+            f"{mm:.4f} ms, whole w8a8 product (activation quant + _int_mm + "
+            f"rescale) {w8a8:.4f} ms; bounds int8 {bound8:.4f} / bf16 "
+            f"{bound16:.4f} ms | {card}")
+    return out
+
+
+def normalized_actions(torch, cands, stats):
+    """The policy's normalised outputs [..., 7] recovered from a
+    ProposeResult (the verifier-format body inverts the bound
+    denormalisation; the gripper is its raw output)."""
+    dev = cands.verifier_chunks.device
+    p01 = torch.as_tensor(stats.action.p01[:6], dtype=torch.float32, device=dev)
+    p99 = torch.as_tensor(stats.action.p99[:6], dtype=torch.float32, device=dev)
+    body = 2 * (cands.verifier_chunks[..., :6] - p01) / (p99 - p01) - 1
+    return torch.cat([body, cands.raw_grippers], dim=-1)
+
+
+def int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
+    """The int8_full verified step (w8a8 policy and verifier backbone) at
+    full width under the fast and all-kernel configs, in turns with bf16
+    fast: launch counts, every candidate and score against bf16 fast
+    within the JAX package's int8 bounds, step times and a profile."""
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_propose_step_batched, make_verified_step_batched)
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.ops import quant
+
+    t0 = time.perf_counter()
+    qpp, qvp = quant.quantize_pi0_policy(pp), quant.quantize_verifier(vp)
+    torch.cuda.synchronize()
+    int8_gb = sum(p.numel() for p in (*qpp.parameters(), *qvp.parameters())
+                  if p.dtype == torch.int8) / 1e9
+    log(f"int8_full: quantize_pi0_policy + quantize_verifier {time.perf_counter() - t0:.1f}s, "
+        f"{int8_gb:.3f} GB of int8 weights")
+    stats = DatasetStatistics.from_json()
+    attn = kernel_configs(pcfg, vcfg)
+    expected = {"all_kernel": launches_per_step(pcfg, vcfg)}
+    expected["fast"] = {**expected["all_kernel"], "prefix_gqa": 0}
+    # w8a8 products a step: 7 a Gemma layer pass, 6 a ViT layer
+    int_mm_per_step = (7 * (pcfg.paligemma.depth
+                            + pcfg.expert.depth * pcfg.num_denoise_steps)
+                       + 6 * (pcfg.vision.depth + vcfg.vision.depth))
+    first_cell = next(iter(cells))
+    profiles = {}
+    for cell, (e, ccfg) in cells.items():
+        inputs, noise_np = episode_inputs(pcfg, vcfg, ccfg, e, seed=0)
+        noise = torch.from_numpy(noise_np).to(dev)
+        fns = {a: make_verified_step_batched(*attn[a], ccfg, stats, device=dev)
+               for a in ("fast", "all_kernel")}
+        runs = {"bf16 fast": (fns["fast"], pp, vp),
+                "int8_full fast": (fns["fast"], qpp, qvp),
+                "int8_full all_kernel": (fns["all_kernel"], qpp, qvp)}
+        res = {}
+        for name, (fn, p, v) in runs.items():
+            ca.reset_launch_counts()
+            quant.reset_int_mm_calls()
+            res[name] = fn(p, v, *inputs, noise=noise)
+            torch.cuda.synchronize()
+            counts, n_int = dict(ca.launch_counts), quant.int_mm_calls["int_mm"]
+            want = expected[name.split()[-1]]
+            want_int = int_mm_per_step if name.startswith("int8") else 0
+            if counts != want or n_int != want_int:
+                raise AssertionError(f"{cell} {name}: launches {counts}, "
+                                     f"_int_mm {n_int}; expected {want}, "
+                                     f"{want_int}")
+            check_result(torch, res[name], e, ccfg.n_rephrases,
+                         ccfg.n_samples, pcfg.chunk_size)
+            log(f"{cell} {name}: launches {counts}, _int_mm calls {n_int}")
+        raw, proprio, lt, lm, vt, hist, hlen = inputs
+        propose = make_propose_step_batched(*attn["fast"], ccfg, stats,
+                                            device=dev)
+        c_bf = propose(pp, raw, proprio, lt, lm, hist, hlen, noise=noise)
+        c_q = propose(qpp, raw, proprio, lt, lm, hist, hlen, noise=noise)
+        a_bf = normalized_actions(torch, c_bf, stats)
+        a_q = normalized_actions(torch, c_q, stats)
+        act_rel = ((a_q - a_bf).abs().max()
+                   / a_bf.pow(2).mean().sqrt()).item()
+        # the verifier alone, as the JAX bound defines it: the int8 and the
+        # bf16 backbone score the same (bf16 policy's) candidates
+        vc = attn["fast"][1]
+        s_bf = verifier_scores(torch, dev, vc, vp, raw, vt, c_bf.trajectories)
+        s_q = verifier_scores(torch, dev, vc, qvp, raw, vt, c_bf.trajectories)
+        ver_rel = ((s_q - s_bf).abs().max() / (s_bf.max() - s_bf.min())).item()
+        ver_ep = ((s_q - s_bf).abs().amax(1)
+                  / (s_bf.amax(1) - s_bf.amin(1))).max().item()
+        if not (act_rel < INT8_ACTION_REL and ver_rel < INT8_SCORE_REL):
+            raise AssertionError(
+                f"{cell} int8 vs bf16: policy action rel {act_rel}, "
+                f"verifier score rel {ver_rel} (bounds {INT8_ACTION_REL}, "
+                f"{INT8_SCORE_REL})")
+        log(f"{cell} int8 vs bf16 (JAX int8 bounds): policy, all "
+            f"{a_bf.shape[0] * a_bf.shape[1]} candidates, max |d action| / "
+            f"RMS {act_rel:.4f} (bound {INT8_ACTION_REL}); verifier backbone "
+            f"on the same candidates, max |d score| / score span "
+            f"{ver_rel:.4f} (bound {INT8_SCORE_REL}; worst episode's own "
+            f"span {ver_ep:.4f}); score span {(s_bf.max() - s_bf.min()).item():.3e}")
+        x = res["bf16 fast"]
+        for name in ("int8_full fast", "int8_full all_kernel"):
+            f = res[name]
+            d = (f.scores - x.scores).abs()
+            agree = (f.winner_idx == x.winner_idx).float().mean().item()
+            log(f"{cell} {name} vs bf16 fast, end to end (int8 candidates "
+                f"under the int8 verifier): max |d score| {d.max().item():.3e}"
+                f" = {(d.max() / (x.scores.max() - x.scores.min())).item():.4f}"
+                f" of the score span (worst episode's own span "
+                f"{(d.amax(1) / (x.scores.amax(1) - x.scores.amin(1))).max().item():.4f}),"
+                f" same pick in {agree:.3f} of {e} episodes")
+        if cell == first_cell:
+            for name in ("bf16 fast", "int8_full fast"):
+                fn, p, v = runs[name]
+                profiles[name] = profile_step(
+                    torch, card, cell, lambda: fn(p, v, *inputs, noise=noise),
+                    label=name)
+        times = {name: [] for name in runs}
+        for _ in range(STEP_REPEATS):       # the configs in turns
+            for name, (fn, p, v) in runs.items():
+                t0 = time.perf_counter()
+                fn(p, v, *inputs, noise=noise)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        p50 = {name: float(np.median(t)) for name, t in times.items()}
+        for name in runs:
+            log(f"step {cell} {name}: p50 {p50[name] * 1e3:.2f} ms (min "
+                f"{min(times[name]) * 1e3:.2f}), verified actions/s "
+                f"{e * pcfg.chunk_size / p50[name]:.2f}, p50 / bf16 fast "
+                f"{p50[name] / p50['bf16 fast']:.3f} | {card}")
+    del qpp, qvp
+    torch.cuda.empty_cache()
+    return profiles
+
+
+def pi0fast_phase(torch, card, dev, cfg):
+    """pi0-FAST at full width (`Pi0FastConfig()`: PaliGemma 2B + so400m,
+    random weights): greedy generation at B = 1 and 4, deterministic and
+    invariant to the padded prompt ids; prefill and per-token times; the
+    policy's queue."""
+    from cover_vla_tpu_torch.data.tokenizer import HashTokenizer
+    from cover_vla_tpu_torch.models import gemma, pi0fast
+
+    t0 = time.perf_counter()
+    params = pi0fast.init_pi0fast(2, cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"pi0fast: random weights, {sum(p.numel() for p in params.parameters()) / 1e9:.3f}B "
+        f"params, init {time.perf_counter() - t0:.1f}s")
+    tok = HashTokenizer(cfg.paligemma.vocab_size)
+    rng = np.random.default_rng(8)
+    tasks = ["put carrot on plate", "put the spoon on the towel",
+             "stack the green block on the yellow block",
+             "put eggplant into yellow basket"]
+    s = cfg.vision.image_size
+    for b in (1, 4):
+        state = rng.uniform(-1, 1, (b, 7)).astype(np.float32)
+        toks, masks = tok.encode_batch(pi0fast.build_prompts(state, tasks[:b]),
+                                       cfg.max_input_seq_len)
+        images = torch.from_numpy(rng.uniform(-1, 1, (b, 1, s, s, 3)).astype(
+            np.float32)).to(dev)
+        im = torch.ones((b, 1), dtype=torch.bool, device=dev)
+        corrupt = toks.copy()
+        corrupt[~masks] = 7
+        t_toks, t_masks, t_corrupt = (torch.from_numpy(x).to(dev)
+                                      for x in (toks, masks, corrupt))
+        outs, walls = [], []
+        for tt in (t_toks, t_toks, t_corrupt):
+            t0 = time.perf_counter()
+            outs.append(pi0fast.generate_action_tokens(params, cfg, images,
+                                                       im, tt, t_masks))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out = outs[0]
+        if out.shape != (b, cfg.max_decoding_steps) or out.dtype != torch.int32:
+            raise AssertionError(f"pi0fast B={b}: {out.shape} {out.dtype}")
+        if not torch.equal(outs[1], out):
+            raise AssertionError(f"pi0fast B={b}: generation not deterministic")
+        if not torch.equal(outs[2], out):
+            raise AssertionError(f"pi0fast B={b}: padded prompt ids changed "
+                                 "the generation")
+        # the prefill alone: embeddings, vision tower and the LM prefill
+        with torch.no_grad():
+            prefill = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                embs, pad = pi0fast.embed_prefix(params, cfg, images, im,
+                                                 t_toks, t_masks)
+                pos = torch.cumsum(pad.to(torch.int32), dim=1) - 1
+                gemma.prefill(params["paligemma"], cfg.paligemma, embs, pos,
+                              pad[:, None, :] & pad[:, :, None],
+                              return_hidden=True)
+                torch.cuda.synchronize()
+                prefill.append(time.perf_counter() - t0)
+        eos = int((out == cfg.eos_token_id).sum())
+        gen = min(walls[1:])
+        per_token = (gen - min(prefill)) / (cfg.max_decoding_steps - 1)
+        log(f"pi0fast B={b}: int32[{b}, {cfg.max_decoding_steps}], equal on "
+            f"repeat and with corrupted padded prompt ids ({int((~masks).sum())} "
+            f"ids); generation {gen * 1e3:.1f} ms (first call "
+            f"{walls[0] * 1e3:.1f}), prefill {min(prefill) * 1e3:.2f} ms over "
+            f"{pad.shape[1]} slots, {per_token * 1e3:.3f} ms a generated token "
+            f"({cfg.max_decoding_steps - 1} decode steps; EOS tokens emitted: "
+            f"{eos}) | {card}")
+    policy = pi0fast.Pi0FastPolicy(params, cfg, text_tokenizer=tok,
+                                   device=dev)
+    imgs = rng.uniform(-1, 1, (1, 1, s, s, 3)).astype(np.float32)
+    state = rng.uniform(-1, 1, (1, 7)).astype(np.float32)
+    a0 = policy.select_action(imgs, state, tasks[:1])
+    a1 = policy.select_action(imgs, state, tasks[:1])
+    # a second generation would have refilled the queue
+    if not (a0.shape == a1.shape == (1, 7) and np.isfinite(a0).all()
+            and len(policy._queue) == cfg.n_action_steps - 2):
+        raise AssertionError("Pi0FastPolicy queue")
+    log(f"pi0fast policy: select_action x2 = one generation, "
+        f"{len(policy._queue)} actions left in the queue")
+    return params
+
+
+def serving_phase(torch, card, dev, pcfg, vcfg, pp, vp, fast_params):
+    """Four served policies answer infer x3, reset, infer through the
+    server's verb dispatch (msgpack frames when msgpack imports): the
+    factory's int8 pi0 and pi0-FAST, a pi0 wrapper under the fast config
+    (K1, K2) in int8, and the int8_full CoVer engine (all kernels)."""
+    import importlib.util
+    from cover_vla_tpu_torch.configs import CoVerConfig, fast_pi0_config
+    from cover_vla_tpu_torch.data.tokenizer import HashTokenizer
+    from cover_vla_tpu_torch.engine import CoVerEngine
+    from cover_vla_tpu_torch.models.factory import make_policy
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.serving import (
+        CoVerPolicyWrapper, Pi0PolicyWrapper, WebsocketPolicyClient,
+        WebsocketPolicyServer)
+    from cover_vla_tpu_torch.serving import msgpack_numpy as mpn
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("msgpack", "websockets")}
+    ptok = HashTokenizer(pcfg.paligemma.vocab_size)
+    pc, vc = kernel_configs(pcfg, vcfg)["all_kernel"]
+    engine = CoVerEngine(
+        pp, vp, pc, vc, CoVerConfig(n_samples=5, n_rephrases=8), seed=0,
+        policy_tokenizer=ptok,
+        verifier_tokenizer=HashTokenizer(vcfg.text.vocab_size, add_bos=False),
+        device=dev)
+    policies = {
+        "pi0 int8 (factory)": make_policy(
+            "pi0", params=pp, quantize="int8", tokenizer=ptok, device=dev),
+        "pi0fast (factory)": make_policy(
+            "pi0fast", params=fast_params, text_tokenizer=ptok, device=dev),
+        "pi0 fast config int8": Pi0PolicyWrapper(
+            pp, fast_pi0_config(pcfg), tokenizer=ptok, quantize="int8",
+            device=dev),
+        "cover int8_full (all_kernel)": CoVerPolicyWrapper(
+            engine, quantize="int8_full")}
+    # whether the next infer runs the model (an empty action queue, a
+    # chunk boundary), and the kernel launches one run makes
+    def runs_model(policy):
+        if isinstance(policy, CoVerPolicyWrapper):
+            return policy.engine._tick % policy.engine.pcfg.chunk_size == 0
+        return not policy._queue
+    per_run = {"pi0 int8 (factory)": {},
+               "pi0fast (factory)": {},
+               "pi0 fast config int8": {
+                   "shared_prefix_gqa": pcfg.expert.depth * pcfg.num_denoise_steps,
+                   "mha_dense": pcfg.vision.depth},
+               "cover int8_full (all_kernel)": launches_per_step(pcfg, vcfg)}
+    rng = np.random.default_rng(9)
+    eef = np.array([0.1, 0.0, 0.2, 1.0, 0.0, 0.0, 0.0, 0.6])
+    task = "put carrot on plate"
+
+    def request(name, i):
+        img = rng.integers(0, 255, (256, 256, 3), dtype=np.uint8)
+        if name.startswith("pi0fast"):
+            obs = {"image": img, "state": rng.uniform(-1, 1, 7).astype(
+                np.float32), "task": task}
+        elif name.startswith("cover"):
+            obs = {"image": img, "proprio": rng.uniform(-0.1, 0.1, 7).astype(
+                np.float32)}
+            if i == 0:
+                obs["reset_task"] = task
+        else:
+            obs = {"image": img, "state": {"agent": {"eef_pos": eef}},
+                   "task": task}
+        return {"type": "infer", "obs": obs}
+
+    for name, policy in policies.items():
+        server = WebsocketPolicyServer(policy, metadata={"model": name})
+        ca.reset_launch_counts()
+        lat = {True: [], False: []}
+        plan = ["infer", "infer", "infer", "reset", "infer"]
+        for i, verb in enumerate(plan):
+            req = request(name, i) if verb == "infer" else {"type": "reset"}
+            ran = runs_model(policy)
+            t0 = time.perf_counter()
+            if have["msgpack"]:
+                resp = mpn.unpackb(mpn.packb(server.dispatch(
+                    mpn.unpackb(mpn.packb(req)))))
+            else:
+                resp = server.dispatch(req)
+            wall = time.perf_counter() - t0
+            if verb == "reset":
+                assert resp == {"status": "ok"}, resp
+                continue
+            act = np.asarray(resp["actions"])
+            if act.shape != (7,) or not np.isfinite(act).all():
+                raise AssertionError(f"{name}: action {act}")
+            lat[ran].append(wall)
+        model_runs = len(lat[True])
+        counts = dict(ca.launch_counts)
+        want = {k: per_run[name].get(k, 0) * model_runs for k in counts}
+        if model_runs != 2 or counts != want:
+            raise AssertionError(f"{name}: {model_runs} model runs, launches "
+                                 f"{counts}, expected 2 and {want}")
+        log(f"serving {name}: infer x3, reset, infer through dispatch"
+            f"{' with msgpack frames' if have['msgpack'] else ''}: {model_runs} "
+            f"model runs, p50 {np.median(lat[True]) * 1e3:.1f} ms (requests "
+            f"that ran the model), {np.median(lat[False]) * 1e3:.2f} ms "
+            f"(queue pops), launches {counts} | {card}")
+
+    if have["msgpack"] and have["websockets"]:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        name = "pi0 fast config int8"
+        server = WebsocketPolicyServer(policies[name], "127.0.0.1", port,
+                                       metadata={"model": name})
+        server.serve_in_thread()
+        try:
+            client = WebsocketPolicyClient("127.0.0.1", port,
+                                           retry_interval_s=0.5, max_retries=20)
+            try:
+                assert client.metadata == {"model": name}, client.metadata
+                client.reset()
+                t0 = time.perf_counter()
+                out = client.infer(request(name, 1)["obs"])
+                wall = time.perf_counter() - t0
+                assert np.asarray(out["actions"]).shape == (7,)
+            finally:
+                client.close()
+        finally:
+            server.stop()
+        log(f"serving over a localhost websocket ({name}): metadata, reset, "
+            f"infer in {wall * 1e3:.1f} ms | {card}")
+    else:
+        log(f"serving: no localhost socket round trip, not importable: "
+            f"{[m for m, ok in have.items() if not ok]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -996,6 +1458,7 @@ def main() -> int:
     from cover_vla_tpu_torch import _build
 
     # phase 1: device ----------------------------------------------------
+    t_start = time.perf_counter()
     card = card_line()
     dev = torch.device("cuda", 0)
     log(card)
@@ -1022,23 +1485,39 @@ def main() -> int:
                                               "256,2,1", "decode,256")):
             raise AssertionError(f"a main-shape wgmma kernel spills: {spills}")
 
+    log(f"phase 1 device: wall {time.perf_counter() - t_start:.1f} s")
     # phase 2: kernels vs twins ------------------------------------------
+    t0 = time.perf_counter()
     results, per_step, designs = kernel_phase(torch, card, dev)
+    log(f"phase 2 kernels: wall {time.perf_counter() - t0:.1f} s")
     # phase 3: small reference -------------------------------------------
+    t0 = time.perf_counter()
     small_reference_phase(torch, dev)
+    log(f"phase 3 small reference: wall {time.perf_counter() - t0:.1f} s")
     # phase 4: main path -------------------------------------------------
+    t0 = time.perf_counter()
     from cover_vla_tpu_torch.configs import CoVerConfig, Pi0Config, VerifierConfig
     pcfg, vcfg = Pi0Config(), VerifierConfig()
     pp, vp = init_full_width(torch, dev, pcfg, vcfg)
-    launches = main_path_phase(
-        torch, card, dev, pcfg, vcfg, pp, vp,
-        {"E16_N16_K1": (16, CoVerConfig(n_samples=16, n_rephrases=1)),
-         "E1_N5_K8": (1, CoVerConfig(n_samples=5, n_rephrases=8))})
+    cells = {"E16_N16_K1": (16, CoVerConfig(n_samples=16, n_rephrases=1)),
+             "E1_N5_K8": (1, CoVerConfig(n_samples=5, n_rephrases=8))}
+    launches = main_path_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells)
     if launches != {"shared_prefix_gqa": 180, "mha_dense": 75,
                     "prefix_gqa": 18}:
         raise AssertionError(f"full-width launch counts {launches}")
+    log(f"phase 4 main path: wall {time.perf_counter() - t0:.1f} s")
     # phase 5: closed-loop evaluation --------------------------------------
+    t0 = time.perf_counter()
     episode_phase(torch, card, dev, pcfg, vcfg, pp, vp)
+    log(f"phase 5 episodes: wall {time.perf_counter() - t0:.1f} s")
+    # phase 6: serving -----------------------------------------------------
+    t0 = time.perf_counter()
+    int8_exactness(torch, card, dev, pp, vp)
+    int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells)
+    from cover_vla_tpu_torch.models.pi0fast import Pi0FastConfig
+    fast_params = pi0fast_phase(torch, card, dev, Pi0FastConfig())
+    serving_phase(torch, card, dev, pcfg, vcfg, pp, vp, fast_params)
+    log(f"phase 6 serving: wall {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",

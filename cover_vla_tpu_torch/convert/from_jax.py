@@ -1,8 +1,9 @@
 """Carry parameter trees of the reference JAX package across to the port.
 
-The input is the tree that ``pi0.init_pi0`` / ``verifier.init_verifier``
-(or a checkpoint loader) returns, with every leaf already turned into a
-numpy array (``jax.tree_util.tree_map(np.asarray, tree)``). The port keeps
+The input is the tree that ``pi0.init_pi0`` / ``verifier.init_verifier`` /
+``pi0fast.init_pi0fast`` (or a checkpoint loader) returns, with every
+leaf already turned into a numpy array
+(``jax.tree_util.tree_map(np.asarray, tree)``). The port keeps
 the same layout, so conversion copies each leaf to a tensor. bf16 leaves
 arrive with numpy's ``bfloat16`` extension dtype, which ``torch.from_numpy``
 refuses; they are reinterpreted bit for bit through uint16.
@@ -21,7 +22,7 @@ import torch
 
 from cover_vla_tpu_torch.configs import Pi0Config, VerifierConfig
 from cover_vla_tpu_torch.device import resolve_device
-from cover_vla_tpu_torch.models import pi0, verifier
+from cover_vla_tpu_torch.models import pi0, pi0fast, verifier
 from cover_vla_tpu_torch.models.params import ParamTree
 
 
@@ -64,6 +65,14 @@ def pi0_from_jax(tree: Mapping, cfg: Pi0Config, device=None) -> ParamTree:
     """pi0 parameters from the reference package's (numpy) tree."""
     dev = resolve_device(device)
     ref = _reference_tree(lambda d: pi0.init_pi0(0, cfg, device=d))
+    return ParamTree(_convert(tree, ref, dev))
+
+
+def pi0fast_from_jax(tree: Mapping, cfg: pi0fast.Pi0FastConfig,
+                     device=None) -> ParamTree:
+    """pi0-FAST parameters from the reference package's (numpy) tree."""
+    dev = resolve_device(device)
+    ref = _reference_tree(lambda d: pi0fast.init_pi0fast(0, cfg, device=d))
     return ParamTree(_convert(tree, ref, dev))
 
 

@@ -1,4 +1,5 @@
-"""Gemma decoder stack: prefill into a KV cache, and shared-prefix decode.
+"""Gemma decoder stack: prefill into a KV cache, shared-prefix decode,
+and greedy autoregressive decode (pi0-FAST).
 
 Layer weights are stacked along a leading [depth] axis, as in the
 reference package, and the layer loop is a Python loop. Decode uses a
@@ -7,8 +8,10 @@ the row's prefix keys/values; the softmax runs jointly over
 [prefix | own suffix] scores in fp32 (eager) or inside kernel K1 ("cuda").
 The prefill's attention is eager or kernel K3 ("cuda").
 
-Numerics: weights bf16, the residual stream in the weights' dtype,
-RMSNorm/softmax/RoPE in fp32.
+Numerics: weights bf16, the residual stream and the KV cache in the
+stack's compute dtype (`_dtype`: the weights' dtype, bf16 for an int8
+stack), RMSNorm/softmax/RoPE in fp32. An int8-quantized stack
+(ops/quant) runs its matmuls as w8a8 products.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from cover_vla_tpu_torch.configs import GemmaConfig
 from cover_vla_tpu_torch.models.params import Init, ParamTree, take_layer
 from cover_vla_tpu_torch.ops.attention import (
     ATTN_BACKENDS, BIG_NEG, gqa_attention)
+from cover_vla_tpu_torch.ops import quant
 from cover_vla_tpu_torch.ops.norms import rms_norm
 from cover_vla_tpu_torch.ops.rope import apply_rope
 
@@ -59,9 +63,26 @@ def embed_tokens(params: ParamTree, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
-def _mm(x: torch.Tensor, layer: dict, name: str) -> torch.Tensor:
+def _dtype(layers_or_layer) -> torch.dtype:
+    """Compute dtype of a stack: its q weight's dtype, or bf16 when the
+    stack is int8-quantized (ops/quant: the layer dict carries the mode)."""
+    d = layers_or_layer["q"].dtype
+    return torch.bfloat16 if d == torch.int8 else d
+
+
+def _mm(x: torch.Tensor, layer: dict, name: str, xq=None,
+        xs=None) -> torch.Tensor:
+    """x @ layer[name], or the int8 product when the layer carries
+    `<name>_scale` (ops/quant.quantize_gemma_stack). A pre-quantized
+    (xq, xs) shares one activation quant across the q/k/v (or gate/up)
+    projections of the same input."""
     w = layer[name]
-    return x.to(w.dtype) @ w
+    s = layer.get(name + "_scale")
+    if s is None:
+        return x.to(w.dtype) @ w
+    if xq is None:
+        xq, xs = quant.quant_act(x)
+    return quant.int8_matmul(xq, xs, w, s)
 
 
 def _qkv(layer: dict, cfg: GemmaConfig, h: torch.Tensor,
@@ -69,11 +90,17 @@ def _qkv(layer: dict, cfg: GemmaConfig, h: torch.Tensor,
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """input RMSNorm -> q/k/v projections -> RoPE. h: [..., S, W];
     positions: [..., S]."""
-    x = rms_norm(h, layer["input_ln"], cfg.rms_eps).to(layer["q"].dtype)
+    x = rms_norm(h, layer["input_ln"], cfg.rms_eps).to(_dtype(layer))
     shape = x.shape[:-1]
-    q = _mm(x, layer, "q").reshape(*shape, cfg.num_heads, cfg.head_dim)
-    k = _mm(x, layer, "k").reshape(*shape, cfg.num_kv_heads, cfg.head_dim)
-    v = _mm(x, layer, "v").reshape(*shape, cfg.num_kv_heads, cfg.head_dim)
+    xq = xs = None
+    if "q_scale" in layer:      # quantize the normed input once for q/k/v
+        xq, xs = quant.quant_act(x)
+    q = _mm(x, layer, "q", xq, xs).reshape(*shape, cfg.num_heads,
+                                           cfg.head_dim)
+    k = _mm(x, layer, "k", xq, xs).reshape(*shape, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    v = _mm(x, layer, "v", xq, xs).reshape(*shape, cfg.num_kv_heads,
+                                           cfg.head_dim)
     pos = positions.reshape(-1, positions.shape[-1])
     q = apply_rope(q.reshape(-1, *q.shape[-3:]), pos,
                    cfg.rope_theta).reshape(q.shape)
@@ -85,11 +112,14 @@ def _qkv(layer: dict, cfg: GemmaConfig, h: torch.Tensor,
 def _post_attention(layer: dict, cfg: GemmaConfig, h: torch.Tensor,
                     attn_out: torch.Tensor) -> torch.Tensor:
     """o_proj + residual + post-LN + GeGLU MLP + residual."""
-    dtype = layer["q"].dtype
+    dtype = _dtype(layer)
     h = h + _mm(attn_out.to(dtype), layer, "o")
     y = rms_norm(h, layer["post_ln"], cfg.rms_eps).to(dtype)
-    gated = F.gelu(_mm(y, layer, "gate"), approximate="tanh") \
-        * _mm(y, layer, "up")
+    yq = ys = None
+    if "gate_scale" in layer:   # quantize y once for gate/up
+        yq, ys = quant.quant_act(y)
+    gated = F.gelu(_mm(y, layer, "gate", yq, ys), approximate="tanh") \
+        * _mm(y, layer, "up", yq, ys)
     return h + _mm(gated, layer, "down")
 
 
@@ -104,15 +134,15 @@ def prefill(pg_params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
     """Run the LM on the prefix, emitting per-layer K/V.
 
     Returns (hidden_or_None, cache) with cache = {"k": [L,B,P,Hkv,D],
-    "v": [L,B,P,Hkv,D]} in the weights' dtype.
+    "v": [L,B,P,Hkv,D]} in the stack's compute dtype.
     """
     if attn_impl not in ATTN_BACKENDS:
         raise ValueError(f"unknown attention backend {attn_impl!r}")
     layers = pg_params["layers"]
-    dtype = layers["q"].dtype
+    dtype = _dtype(layers)
     if attn_impl == "cuda":
         # kernel K3, once per layer: bf16 operands, the mask made
-        # contiguous once; fp32 weights get the kernel's fp32 result
+        # contiguous once; an fp32 stack gets the kernel's fp32 result
         from cover_vla_tpu_torch.ops.cuda_attention import prefix_gqa
         kmask = mask.contiguous()
         bf = torch.bfloat16
@@ -140,6 +170,86 @@ def prefill(pg_params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Autoregressive greedy decode (pi0-FAST action-token generation)
+# ---------------------------------------------------------------------------
+
+
+def lm_logits(params: ParamTree, cfg: GemmaConfig,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding LM head: logits = hidden @ embed^T, fp32."""
+    return hidden.float() @ params["embed"].float().T
+
+
+@torch.no_grad()
+def ar_generate(params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
+                prefix_pad: torch.Tensor, max_new_tokens: int, eos_id: int,
+                pad_id: int = 0) -> torch.Tensor:
+    """Greedy autoregressive generation after a (right-padded) prefix.
+
+    The KV cache is preallocated to [L, B, P + max_new, Hkv, D]; new tokens
+    occupy fixed slots P+t with per-row RoPE positions starting at each
+    row's count of valid prefix tokens, so right padding needs no shifting
+    (invalid key slots are masked). Rows that emit EOS continue with pad
+    tokens. Output t is the token fed at step t; the loop stops once every
+    row is done, since every later output is then pad.
+
+    Returns int32[B, max_new_tokens].
+    """
+    b, p_len, _ = prefix_emb.shape
+    dev = prefix_emb.device
+    layers = params["layers"]
+    positions = torch.cumsum(prefix_pad.to(torch.int32), dim=1) - 1
+    mask2d = prefix_pad[:, None, :] & prefix_pad[:, :, None]
+    hidden, cache = prefill(params, cfg, prefix_emb, positions, mask2d,
+                            return_hidden=True)
+
+    shape = (cfg.depth, b, p_len + max_new_tokens, cfg.num_kv_heads,
+             cfg.head_dim)
+    kc = torch.zeros(shape, dtype=cache["k"].dtype, device=dev)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :p_len] = cache["k"]
+    vc[:, :, :p_len] = cache["v"]
+    key_valid = torch.cat([prefix_pad.bool(), torch.zeros(
+        (b, max_new_tokens), dtype=torch.bool, device=dev)], dim=1)
+
+    # the tied embedding in fp32 once per call, not once per step
+    table = params["embed"].float()
+    n_valid = prefix_pad.to(torch.int32).sum(dim=1)                 # [B]
+    rows = torch.arange(b, device=dev)
+    first = hidden[rows, n_valid.long() - 1].float() @ table.T
+    token = first.argmax(dim=-1).to(torch.int32)
+    done = token == eos_id
+    token = torch.where(done, pad_id, token)
+    pos = n_valid
+    scale = torch.tensor(cfg.width ** 0.5, dtype=params["embed"].dtype)
+    dtype = _dtype(layers)
+
+    out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32,
+                     device=dev)
+    for t in range(max_new_tokens):
+        out[:, t] = token
+        # the last step's next token is never emitted
+        if t == max_new_tokens - 1 or bool(done.all()):
+            break
+        slot = p_len + t
+        key_valid[:, slot] = True
+        h = (embed_tokens(params, token[:, None]) * scale).to(dtype)
+        for i in range(cfg.depth):
+            layer = take_layer(layers, i)
+            q, k, v = _qkv(layer, cfg, h, pos[:, None])
+            kc[i, :, slot] = k[:, 0]
+            vc[i, :, slot] = v[:, 0]
+            attn = gqa_attention(q, kc[i], vc[i], key_valid[:, None, :])
+            h = _post_attention(layer, cfg, h, attn)
+        h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+        next_token = (h[:, 0].float() @ table.T).argmax(dim=-1).to(torch.int32)
+        next_done = done | (next_token == eos_id)
+        token = torch.where(done, pad_id, next_token)   # the old `done`
+        done, pos = next_done, pos + 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Shared-prefix decode (expert span only, N candidates per cached row)
 # ---------------------------------------------------------------------------
 
@@ -159,7 +269,7 @@ def decode_shared_prefix(ex_params: ParamTree, cfg: GemmaConfig,
     b, n, s, _ = suffix_emb.shape
     pos = positions[:, None, :].expand(b, n, s)
     layers = ex_params["layers"]
-    h = suffix_emb.to(layers["q"].dtype)
+    h = suffix_emb.to(_dtype(layers))
     for i in range(cfg.depth):
         layer = take_layer(layers, i)
         q, k, v = _qkv(layer, cfg, h, pos)   # q: [B,N,S,Hq,D]; k/v: [B,N,S,Hkv,D]

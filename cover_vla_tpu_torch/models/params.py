@@ -17,13 +17,16 @@ from torch import nn
 
 class ParamTree(nn.Module):
     """Nested frozen parameters: tensors become `nn.Parameter`s
-    (requires_grad=False), sub-dicts become child trees."""
+    (requires_grad=False) over the same storage, sub-dicts become child
+    trees, and child trees are taken as they are."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
         self._keys = list(tree)
         for key, value in tree.items():
-            if isinstance(value, Mapping):
+            if isinstance(value, ParamTree):
+                self.add_module(key, value)
+            elif isinstance(value, Mapping):
                 self.add_module(key, ParamTree(value))
             else:
                 self.register_parameter(

@@ -9,7 +9,9 @@ embedding, a bidirectional pre-LN transformer, ln_final and an fp32
 Linear text_projection applied per token.
 
 Layers are [depth]-stacked; weights bf16; LayerNorm/softmax fp32. The
-tower attention runs eager or through kernel K2 (`attn_impl="cuda"`).
+tower attention runs eager or through kernel K2 (`attn_impl="cuda"`). A
+ViT stack quantized by ops/quant runs its block matmuls as w8a8 products
+in the biases' dtype; the patch embed and the text tower stay as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from cover_vla_tpu_torch.configs import SiglipTextConfig, VitConfig
 from cover_vla_tpu_torch.models.params import Init, ParamTree, take_layer
+from cover_vla_tpu_torch.ops import quant
 from cover_vla_tpu_torch.ops.attention import mha_attention
 from cover_vla_tpu_torch.ops.image import patchify
 from cover_vla_tpu_torch.ops.norms import layer_norm
@@ -71,8 +74,24 @@ def init_vit(init: Init, cfg: VitConfig, dtype=torch.bfloat16) -> dict:
     }
 
 
-def _vmm(x: torch.Tensor, sub: dict) -> torch.Tensor:
-    return x @ sub["kernel"] + sub["bias"]
+def _dense_dtype(sub) -> torch.dtype:
+    """Compute dtype of a {kernel, bias} matmul: the bias dtype when the
+    kernel is int8-quantized (ops/quant.quantize_vit_stack)."""
+    d = sub["kernel"].dtype
+    return sub["bias"].dtype if d == torch.int8 else d
+
+
+def _vmm(x: torch.Tensor, sub, xq=None, xs=None) -> torch.Tensor:
+    """x @ sub['kernel'] + sub['bias'], or the int8 product when the
+    sub-dict carries `scale`. A pre-quantized (xq, xs) shares one
+    activation quant across q/k/v."""
+    s = sub.get("scale")
+    if s is None:
+        return x @ sub["kernel"] + sub["bias"]
+    if xq is None:
+        xq, xs = quant.quant_act(x)
+    return quant.int8_matmul(xq, xs, sub["kernel"], s,
+                             out_dtype=sub["bias"].dtype) + sub["bias"]
 
 
 def _block(layer: dict, h: torch.Tensor, num_heads: int, eps: float,
@@ -85,16 +104,19 @@ def _block(layer: dict, h: torch.Tensor, num_heads: int, eps: float,
     b, t, w = h.shape
     d = w // num_heads
     x = layer_norm(h, layer["ln1"]["scale"], layer["ln1"]["bias"], eps)
-    x = x.to(layer["attn"]["q"]["kernel"].dtype)
-    q = _vmm(x, layer["attn"]["q"]).reshape(b, t, num_heads, d)
-    k = _vmm(x, layer["attn"]["k"]).reshape(b, t, num_heads, d)
-    v = _vmm(x, layer["attn"]["v"]).reshape(b, t, num_heads, d)
+    x = x.to(_dense_dtype(layer["attn"]["q"]))
+    xq = xs = None
+    if "scale" in layer["attn"]["q"]:   # quantize the normed input once
+        xq, xs = quant.quant_act(x)
+    q = _vmm(x, layer["attn"]["q"], xq, xs).reshape(b, t, num_heads, d)
+    k = _vmm(x, layer["attn"]["k"], xq, xs).reshape(b, t, num_heads, d)
+    v = _vmm(x, layer["attn"]["v"], xq, xs).reshape(b, t, num_heads, d)
     attn = mha_attention(q, k, v, mask=mask, backend=attn_impl)
-    attn_out = _vmm(attn.to(layer["attn"]["o"]["kernel"].dtype),
+    attn_out = _vmm(attn.to(_dense_dtype(layer["attn"]["o"])),
                     layer["attn"]["o"])
     h = h + attn_out
     y = layer_norm(h, layer["ln2"]["scale"], layer["ln2"]["bias"], eps)
-    y = y.to(layer["mlp"]["fc1"]["kernel"].dtype)
+    y = y.to(_dense_dtype(layer["mlp"]["fc1"]))
     y = F.gelu(_vmm(y, layer["mlp"]["fc1"]),
                approximate="tanh" if gelu_approx else "none")
     y = _vmm(y, layer["mlp"]["fc2"])

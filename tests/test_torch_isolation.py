@@ -34,7 +34,11 @@ def test_every_module_imports_without_jax():
     for name in ("engine.verified_step", "engine.cover_engine",
                  "engine.batched_engine", "eval.evaluator", "eval.fake_env",
                  "eval.adapters", "eval.fractal_adapters", "eval.benchmark",
-                 "eval.rephrase", "data.tokenizer", "ops.cuda_attention"):
+                 "eval.rephrase", "data.tokenizer", "ops.cuda_attention",
+                 "ops.quant", "models.pi0fast", "models.factory",
+                 "data.fast_tokenizer", "serving", "serving.msgpack_numpy",
+                 "serving.policy_service", "serving.policy_wrapper",
+                 "eval.remote_evaluator"):
         assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -44,6 +48,27 @@ def test_every_module_imports_without_jax():
             "    importlib.import_module(m)\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'cover_vla_tpu.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_serving_imports_without_its_transport():
+    """websockets and msgpack are imported inside the transport only: the
+    serving package and the verb dispatch work without them."""
+    code = ("import sys\n"
+            "for m in ('jax', 'cover_vla_tpu', 'websockets', 'msgpack'):\n"
+            "    sys.modules[m] = None\n"
+            "from cover_vla_tpu_torch.serving import WebsocketPolicyServer\n"
+            "import cover_vla_tpu_torch.eval.remote_evaluator\n"
+            "import cover_vla_tpu_torch.models.factory\n"
+            "class P:\n"
+            "    def infer(self, obs): return {'a': obs['x'] + 1}\n"
+            "    def reset(self): pass\n"
+            "    def switch_model(self, path): pass\n"
+            "s = WebsocketPolicyServer(P())\n"
+            "assert s.dispatch({'type': 'infer', 'obs': {'x': 1}}) == {'a': 2}\n"
+            "assert s.dispatch({'type': 'reset'}) == {'status': 'ok'}\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -73,6 +98,12 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
         pi0.init_pi0(0, tiny_pi0_config())
     with pytest.raises(RuntimeError, match="CUDA"):
         verifier.init_verifier(0, tiny_verifier_config())
+    from cover_vla_tpu_torch.models import factory, pi0fast
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pi0fast.init_pi0fast(0, pi0fast.tiny_pi0fast_config())
+    for family in ("pi0", "pi0fast"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            factory.make_policy(family, tiny=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_verified_step_batched(tiny_pi0_config(), tiny_verifier_config(),
                                    CoVerConfig(n_samples=2, n_rephrases=2),
