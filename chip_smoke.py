@@ -44,15 +44,32 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      factory's int8 pi0 and pi0-FAST, an int8 pi0 under the fast config,
      the int8_full CoVer engine) answering infer x3, reset, infer through
      the server's verb dispatch, and one localhost websocket round trip
-     when websockets and msgpack import.
+     when websockets and msgpack import;
+  7. checkpoints and the entry point at full width: phase 4's random π0
+     written as a lerobot-layout .safetensors (the converter's layout
+     inverted, this script's own writer) and loaded back through
+     loaders.load_policy_params cold (read, convert, cache write, card)
+     and from its .torchcache twice (page cache dropped, then warm): every
+     leaf bit-equal, each stage's seconds, GB/s from the disk and to the
+     card, host peak RSS, card peak; the verifier heads through a merged
+     .pt and back with the served backbone, bit-equal; the loaded trees
+     through the all-kernel E1_N5_K8 step, candidates, scores and pick
+     bit-equal to the in-memory trees' (launches 180/75/18); and
+     run.build_server in cover mode from those files (refused without
+     allow_hash_tokenizer, and with a heads-only .pt as its first
+     verifier), answering infer x3, reset, switch_model to a second π0 (a
+     blob directory), infer, switch_model to verifier:<heads .pt>, infer:
+     the switched trees bit-equal, request p50, switch seconds.
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1450,6 +1467,520 @@ def serving_phase(torch, card, dev, pcfg, vcfg, pp, vp, fast_params):
             f"{[m for m, ok in have.items() if not ok]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: checkpoints and the entry point at full width
+# ---------------------------------------------------------------------------
+
+
+def lerobot_pi0_tensors(pp, pcfg):
+    """The inverse of convert_pi0's layout: (name, tensor) pairs of a
+    lerobot PI0Policy state dict, as views of the card tree `pp` in its
+    own dtypes (un-transposed, un-stacked, renamed)."""
+    root = "model.paligemma_with_expert."
+    out = []
+
+    def gemma_stack(tree, prefix, depth, embed):
+        layers = tree["layers"]
+        for i in range(depth):
+            p = f"{prefix}.layers.{i}."
+            out.append((p + "input_layernorm.weight", layers["input_ln"][i]))
+            for key, name in (("q", "self_attn.q_proj"),
+                              ("k", "self_attn.k_proj"),
+                              ("v", "self_attn.v_proj"),
+                              ("o", "self_attn.o_proj"),
+                              ("gate", "mlp.gate_proj"),
+                              ("up", "mlp.up_proj"),
+                              ("down", "mlp.down_proj")):
+                out.append((p + name + ".weight", layers[key][i].t()))
+            out.append((p + "post_attention_layernorm.weight",
+                        layers["post_ln"][i]))
+        out.append((prefix + ".norm.weight", tree["final_norm"]))
+        if embed:
+            out.append((prefix + ".embed_tokens.weight", tree["embed"]))
+
+    def linear(name, sub, i=None):
+        k, b = sub["kernel"], sub["bias"]
+        if i is not None:
+            k, b = k[i], b[i]
+        out.append((name + ".weight", k.t()))
+        out.append((name + ".bias", b))
+
+    v, vc = pp["vision"], pcfg.vision
+    vt = root + "paligemma.vision_tower.vision_model"
+    ps = vc.patch_size
+    out.append((vt + ".embeddings.patch_embedding.weight",
+                v["patch_embed"]["kernel"].reshape(ps, ps, 3, vc.width)
+                .permute(3, 2, 0, 1)))
+    out.append((vt + ".embeddings.patch_embedding.bias",
+                v["patch_embed"]["bias"]))
+    out.append((vt + ".embeddings.position_embedding.weight", v["pos_emb"]))
+    blocks = v["blocks"]
+    for i in range(vc.depth):
+        p = f"{vt}.encoder.layers.{i}."
+        for ln in ("1", "2"):
+            out.append((p + f"layer_norm{ln}.weight",
+                        blocks[f"ln{ln}"]["scale"][i]))
+            out.append((p + f"layer_norm{ln}.bias",
+                        blocks[f"ln{ln}"]["bias"][i]))
+        for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                          ("o", "out_proj")):
+            linear(p + "self_attn." + name, blocks["attn"][key], i)
+        linear(p + "mlp.fc1", blocks["mlp"]["fc1"], i)
+        linear(p + "mlp.fc2", blocks["mlp"]["fc2"], i)
+    out.append((vt + ".post_layernorm.weight", v["final_ln"]["scale"]))
+    out.append((vt + ".post_layernorm.bias", v["final_ln"]["bias"]))
+    linear(root + "paligemma.multi_modal_projector.linear", pp["mm_proj"])
+    gemma_stack(pp["paligemma"], root + "paligemma.language_model.model",
+                pcfg.paligemma.depth, True)
+    gemma_stack(pp["expert"], root + "gemma_expert.model", pcfg.expert.depth,
+                False)
+    for key, name in (("state_proj", "state_proj"),
+                      ("action_in_proj", "action_in_proj"),
+                      ("action_out_proj", "action_out_proj"),
+                      ("time_mlp_in", "action_time_mlp_in"),
+                      ("time_mlp_out", "action_time_mlp_out")):
+        linear("model." + name, pp[key])
+    return out
+
+
+def write_safetensors(torch, path, named) -> int:
+    """A .safetensors file of (name, tensor) pairs (any device), written
+    one tensor at a time: the u64 header length, the JSON header padded to
+    8 bytes, then the data in order. Returns the bytes written."""
+    codes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, t in named:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for _, t in named:
+            c = t.contiguous().cpu()
+            f.write((c.view(torch.int16) if c.dtype == torch.bfloat16
+                     else c).numpy().data)
+        f.flush()
+        os.fsync(f.fileno())
+    return 8 + len(raw) + off
+
+
+def resident_share(path) -> float:
+    """The share of `path`'s pages in the page cache: `mincore` over a
+    mapping of the file that touches none of them."""
+    import ctypes
+    import mmap
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p]
+    size = os.path.getsize(path)
+    pages = -(-size // mmap.PAGESIZE)
+    vec = (ctypes.c_ubyte * pages)()
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd, 0)
+        if addr is None or addr == ctypes.c_void_p(-1).value:
+            raise OSError(ctypes.get_errno(), f"mmap of {path}")
+        try:
+            if libc.mincore(ctypes.c_void_p(addr), size, vec):
+                raise OSError(ctypes.get_errno(), f"mincore of {path}")
+        finally:
+            libc.munmap(ctypes.c_void_p(addr), size)
+    finally:
+        os.close(fd)
+    return 1 - bytes(vec).count(0) / pages
+
+
+def drop_page_cache(path) -> float:
+    """Write `path`'s dirty pages back and ask the kernel to drop its
+    cached pages (no root needed), then return the share of its pages
+    that `mincore` still finds resident: under 0.01, the next read comes
+    from the disk. Some sandboxes honour neither call, their file systems
+    living in memory; then every read of the file is a memory read."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return resident_share(path)
+
+
+def read_from(resident: float) -> str:
+    """Where a read after `drop_page_cache` comes from, for the log."""
+    if resident < 0.01:
+        return f"the disk (page cache dropped: {resident:.1%} resident)"
+    return (f"a file not shown dropped from the page cache ({resident:.0%} "
+            "resident after POSIX_FADV_DONTNEED): not a disk reading")
+
+
+def mount_of(path) -> str:
+    """The file system type and mount point that hold `path`."""
+    path, best = os.path.realpath(path), ("?", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, point, fstype = line.split()[:3]
+            inside = path == point or path.startswith(point.rstrip("/") + "/")
+            if inside and len(point) >= len(best[1]):
+                best = (fstype, point)
+    return f"{best[0]} at {best[1]}"
+
+
+def read_rate_gbs(path) -> float:
+    """GB/s of one sequential read of `path` in 64 MiB pieces."""
+    buf = bytearray(64 << 20)
+    view, total = memoryview(buf), 0
+    t0 = time.perf_counter()
+    with open(path, "rb", buffering=0) as f:
+        while True:
+            n = f.readinto(view)
+            if not n:
+                break
+            total += n
+    return total / (time.perf_counter() - t0) / 1e9
+
+
+class RssPeak:
+    """The host's resident set, sampled every 10 ms from /proc/self/statm
+    while the `with` block runs: peak and last readings in GB. (Linux's
+    resettable peak, `VmHWM` after a `clear_refs` write, is missing in
+    sandboxed kernels such as gVisor's.)"""
+
+    def __init__(self):
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.peak = self.last = self._read()
+
+    def _read(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 1e9
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.last = self._read()
+            self.peak = max(self.peak, self.last)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.last = self._read()
+        self.peak = max(self.peak, self.last)
+        return False
+
+
+def assert_tree_equal(torch, got, want, what, where=""):
+    """Same keys; every leaf the same dtype, shape and bits."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}{where}: keys {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for k in want:
+        g, w = got[k], want[k]
+        if isinstance(w, torch.Tensor):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{what}{where}/{k}: not bit-equal "
+                                     f"({g.dtype} vs {w.dtype})")
+        else:
+            assert_tree_equal(torch, g, w, what, f"{where}/{k}")
+
+
+class StageLog:
+    """Collects the loaders' stage seconds (their INFO records)."""
+
+    def __init__(self):
+        import logging
+        self.logger = logging.getLogger("cover_vla_tpu_torch.convert.loaders")
+        self.records = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if hasattr(record, "stage"):
+                    outer.records.append((record.stage, record.seconds))
+
+        self.handler = Handler()
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+
+    def take(self) -> dict:
+        out = dict(self.records)
+        self.records.clear()
+        return out
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def checkpoint_phase(torch, card, dev, pcfg, vcfg, pp, vp):
+    """Phase 7: a full-width lerobot π0 .safetensors and a heads-only
+    merged verifier .pt, written from the random trees, loaded back
+    bit-equal (cold, cached), run through the all-kernel step bit-equal
+    to the in-memory trees, and served through run.build_server with both
+    switch_model kinds."""
+    import gc
+    import shutil
+    import tempfile
+    from cover_vla_tpu_torch import run
+    from cover_vla_tpu_torch.configs import CoVerConfig
+    from cover_vla_tpu_torch.convert import checkpoints, loaders
+    from cover_vla_tpu_torch.convert.verifier_to_torch import (
+        save_merged_ensemble)
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_propose_step_batched, make_verified_step_batched)
+    from cover_vla_tpu_torch.models import pi0, verifier
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.serving import msgpack_numpy as mpn
+    from cover_vla_tpu_torch.utils import count_params, param_bytes
+
+    tmp = tempfile.mkdtemp(prefix="cvla_checkpoints_")
+    stages = StageLog()
+    try:
+        # 7.1 disk ----------------------------------------------------------
+        p_bytes, v_bytes = param_bytes(pp), param_bytes(vp)
+        usage = shutil.disk_usage(tmp)
+        # at once: the .safetensors, its cache and the verifier blob; in
+        # all, also the second π0 (a blob) and two merged .pt files
+        need = 2 * p_bytes + v_bytes
+        log(f"phase 7 disk: {tmp}: {usage.free / 1e9:.1f} GB free of "
+            f"{usage.total / 1e9:.1f} GB; the phase writes "
+            f"{(3 * p_bytes + v_bytes) / 1e9:.2f} GB in all, at most "
+            f"{need / 1e9:.2f} GB at once (π0 .safetensors {p_bytes / 1e9:.3f} "
+            f"GB = {count_params(pp) / 1e9:.3f}B params, its cache as much, "
+            f"verifier blob {v_bytes / 1e9:.3f} GB); each file is deleted "
+            f"once it has served")
+        if usage.free < 1.1 * need:
+            raise AssertionError(
+                f"phase 7 needs {need / 1e9:.1f} GB on {tmp}, "
+                f"{usage.free / 1e9:.1f} GB are free")
+
+        # 7.2 a lerobot-layout π0 state dict ----------------------------------
+        st = os.path.join(tmp, "model.safetensors")
+        t0 = time.perf_counter()
+        n = write_safetensors(torch, st, lerobot_pi0_tensors(pp, pcfg))
+        write_s = time.perf_counter() - t0
+        src = read_from(drop_page_cache(st))
+        disk_gbs = read_rate_gbs(st)
+        drop_page_cache(st)
+        log(f"checkpoint: wrote the lerobot π0 .safetensors, {n / 1e9:.3f} "
+            f"GB in {write_s:.2f} s (card to host to file, fsync) on "
+            f"{mount_of(st)}; a sequential read of it {disk_gbs:.2f} GB/s "
+            f"from {src} | {card}")
+
+        # 7.3 load it twice: cold, then from the cache ------------------------
+        def timed_load(label):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with RssPeak() as rss:
+                before = rss.last
+                t0 = time.perf_counter()
+                out = loaders.load_policy_params(st, pcfg, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = stages.take()
+            log(f"load {label}: {wall:.2f} s, {p_bytes / wall / 1e9:.2f} GB/s "
+                f"end to end; stages "
+                f"{ {k: round(v, 3) for k, v in got.items()} }; to device "
+                f"{p_bytes / got['to_device'] / 1e9:.2f} GB/s; host RSS "
+                f"{before:.2f} GB before, peak {rss.peak:.2f} GB, "
+                f"{rss.last:.2f} GB after; card peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+            return out, got
+
+        loaded, cold = timed_load("cold (read + convert + cache write + "
+                                  "to device)")
+        if "convert" not in cold or "cache_write" not in cold:
+            raise AssertionError(f"the cold load did not convert: {cold}")
+        assert_tree_equal(torch, loaded, pp, "cold-loaded π0")
+        del loaded
+        gc.collect()
+        blob_path = os.path.join(st + loaders.CACHE_SUFFIX,
+                                 checkpoints.BLOB_NAME)
+        src = read_from(drop_page_cache(blob_path))
+        loaded, cached = timed_load(f"cached, read from {src}, to device")
+        if "convert" in cached:
+            raise AssertionError(f"the cached load converted: {cached}")
+        assert_tree_equal(torch, loaded, pp, "cache-loaded π0")
+        del loaded
+        gc.collect()
+        loaded_pp, _ = timed_load("cached, in the page cache (pageable "
+                                  "host-to-device copy)")
+        assert_tree_equal(torch, loaded_pp, pp, "cache-loaded π0")
+        log("checkpoint: π0 .safetensors -> convert_pi0 -> cache -> card: "
+            "every leaf bit-equal to the random tree, three loads")
+
+        # 7.4 the verifier heads ----------------------------------------------
+        pt = os.path.join(tmp, "merged_ensemble.pt")
+        t0 = time.perf_counter()
+        save_merged_ensemble(pt, vp["members"], vcfg)
+        t1 = time.perf_counter()
+        loaded_vp = loaders.load_verifier_params(
+            pt, vcfg, backbone_params=vp["backbone"], device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        assert_tree_equal(torch, loaded_vp, vp, "reloaded verifier")
+        log(f"checkpoint: verifier heads ({count_params(vp['members']) / 1e6:.2f}M "
+            f"params, 3 members) -> merged .pt in {t1 - t0:.2f} s -> back "
+            f"with the served backbone in {t2 - t1:.2f} s: bit-equal | {card}")
+
+        # 7.5 the loaded weights through the kernels ---------------------------
+        from cover_vla_tpu_torch.configs import fast_pi0_config, replace
+        pc = replace(fast_pi0_config(pcfg), attention_impl="cuda")
+        vc = kernel_configs(pcfg, vcfg)["all_kernel"][1]
+        ccfg = CoVerConfig(n_samples=5, n_rephrases=8)
+        stats = DatasetStatistics.from_json()
+        inputs, noise_np = episode_inputs(pcfg, vcfg, ccfg, 1, seed=0)
+        noise = torch.from_numpy(noise_np).to(dev)
+        step = make_verified_step_batched(pc, vc, ccfg, stats, device=dev)
+        want = step(pp, vp, *inputs, noise=noise)
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        got = step(loaded_pp, loaded_vp, *inputs, noise=noise)
+        torch.cuda.synchronize()
+        launches = dict(ca.launch_counts)
+        if launches != launches_per_step(pcfg, vcfg):
+            raise AssertionError(f"loaded-weights step launches {launches}")
+        check_result(torch, got, 1, 8, 5, pcfg.chunk_size)
+        for name, a in want._asdict().items():
+            if not torch.equal(a, getattr(got, name)):
+                raise AssertionError(f"loaded-weights step: {name} differs")
+        raw, proprio, lt, lm, _, hist, hlen = inputs
+        propose = make_propose_step_batched(pc, vc, ccfg, stats, device=dev)
+        cw = propose(pp, raw, proprio, lt, lm, hist, hlen, noise=noise)
+        cg = propose(loaded_pp, raw, proprio, lt, lm, hist, hlen, noise=noise)
+        for name, a in cw._asdict().items():
+            if not torch.equal(a, getattr(cg, name)):
+                raise AssertionError(f"loaded-weights candidates: {name} "
+                                     f"differs")
+        log(f"checkpoint: E1_N5_K8 all_kernel step on the loaded weights: all "
+            f"{cw.exec_chunks.shape[1]} candidates, scores and the pick "
+            f"bit-equal to the in-memory weights; launches {launches}")
+        del loaded_pp, loaded_vp, want, got, cw, cg
+        gc.collect()
+
+        # 7.6 serving through run.py -------------------------------------------
+        serve = run.ServeCfg(mode="cover", checkpoint=st,
+                             verifier_checkpoint=pt)
+        try:
+            run.build_server(run.RunCfg(role="serve_policy", serve=serve))
+        except RuntimeError as e:
+            if "tokenizer" not in str(e):
+                raise
+        else:
+            raise AssertionError("build_server served a checkpoint under the "
+                                 "hash tokenizer without allow_hash_tokenizer")
+        serve = replace(serve, allow_hash_tokenizer=True)
+        try:
+            run.build_server(run.RunCfg(role="serve_policy", serve=serve))
+        except ValueError as e:
+            if "heads-only" not in str(e):
+                raise
+        else:
+            raise AssertionError("build_server took a heads-only .pt as its "
+                                 "first verifier checkpoint")
+        vdir = checkpoints.save_params(os.path.join(tmp, "verifier"), vp)
+        t0 = time.perf_counter()
+        server = run.build_server(run.RunCfg(
+            role="serve_policy", serve=replace(serve, verifier_checkpoint=vdir)))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        policy = server.policy
+        engine = policy.engine
+        assert_tree_equal(torch, engine.policy_params, pp, "served π0")
+        assert_tree_equal(torch, engine.verifier_params, vp, "served verifier")
+        gc.collect()
+        shutil.rmtree(st + loaders.CACHE_SUFFIX)
+        os.remove(st)
+        shutil.rmtree(vdir)
+        log(f"serving: run.build_server(mode=cover, checkpoint=<.safetensors>, "
+            f"verifier_checkpoint=<blob dir>, allow_hash_tokenizer) in "
+            f"{build_s:.2f} s, both trees bit-equal; refused without "
+            f"allow_hash_tokenizer, and with a heads-only .pt as its first "
+            f"verifier (it carries no backbone) | {card}")
+
+        pp2 = pi0.init_pi0(2, pcfg, device=dev)
+        pdir = checkpoints.save_params(os.path.join(tmp, "pi0_2"), pp2)
+        members2 = verifier.init_verifier(3, vcfg, num_members=3,
+                                          device=dev)["members"]
+        pt2 = os.path.join(tmp, "merged_ensemble_2.pt")
+        save_merged_ensemble(pt2, members2, vcfg)
+        have_msgpack = importlib.util.find_spec("msgpack") is not None
+        rng = np.random.default_rng(11)
+        task = "put carrot on plate"
+
+        def infer(first=False):
+            obs = {"image": rng.integers(0, 255, (256, 256, 3),
+                                         dtype=np.uint8),
+                   "proprio": rng.uniform(-0.1, 0.1, 7).astype(np.float32)}
+            if first:
+                obs["reset_task"] = task
+            return {"type": "infer", "obs": obs}
+
+        plan = [infer(True), infer(), infer(), {"type": "reset"},
+                {"type": "switch_model", "path": pdir}, infer(),
+                {"type": "switch_model", "path": "verifier:" + pt2}, infer()]
+        model_s, pop_s, switch_s = [], [], {}
+        backbone = engine.verifier_params["backbone"]
+        ca.reset_launch_counts()
+        for req in plan:
+            ran = engine._tick % engine.pcfg.chunk_size == 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            resp = (mpn.unpackb(mpn.packb(server.dispatch(
+                mpn.unpackb(mpn.packb(req))))) if have_msgpack
+                else server.dispatch(req))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if req["type"] == "infer":
+                act = np.asarray(resp["actions"])
+                if act.shape != (7,) or not np.isfinite(act).all():
+                    raise AssertionError(f"served action {act}")
+                (model_s if ran else pop_s).append(wall)
+            elif req["type"] == "switch_model":
+                assert resp == {"status": "ok"}, resp
+                switch_s[req["path"]] = (
+                    wall, torch.cuda.max_memory_allocated() / 1e9)
+            else:
+                assert resp == {"status": "ok"}, resp
+        served_launches = dict(ca.launch_counts)
+        if any(served_launches.values()):
+            raise AssertionError(f"build_server's engine (the eager configs) "
+                                 f"launched kernels: {served_launches}")
+        assert_tree_equal(torch, engine.policy_params, pp2, "switched π0")
+        assert_tree_equal(torch, engine.verifier_params["members"], members2,
+                          "switched verifier heads")
+        if engine.verifier_params["backbone"] is not backbone:
+            raise AssertionError("the verifier switch replaced the backbone")
+        (sp, pm), (sv, vm) = switch_s[pdir], switch_s["verifier:" + pt2]
+        log(f"serving through run.py ({'msgpack frames' if have_msgpack else 'dicts'}): "
+            f"infer x3, reset, switch π0 (blob dir) {sp:.2f} s (card peak "
+            f"{pm:.2f} GB: both policy trees held until the swap), infer, "
+            f"switch verifier:<heads .pt> {sv:.2f} s (card peak {vm:.2f} GB), "
+            f"infer; {len(model_s)} requests ran the model: p50 "
+            f"{np.median(model_s) * 1e3:.1f} ms, queue pops p50 "
+            f"{np.median(pop_s) * 1e3:.2f} ms; switched trees bit-equal; "
+            f"kernel launches {served_launches} (build_server serves the "
+            f"eager configs, as the JAX package's does) | {card}")
+        if len(model_s) != 3:
+            raise AssertionError(f"{len(model_s)} model runs, expected 3")
+    finally:
+        stages.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1518,6 +2049,11 @@ def main() -> int:
     fast_params = pi0fast_phase(torch, card, dev, Pi0FastConfig())
     serving_phase(torch, card, dev, pcfg, vcfg, pp, vp, fast_params)
     log(f"phase 6 serving: wall {time.perf_counter() - t0:.1f} s")
+    # phase 7: checkpoints and the entry point ------------------------------
+    t0 = time.perf_counter()
+    del fast_params
+    checkpoint_phase(torch, card, dev, pcfg, vcfg, pp, vp)
+    log(f"phase 7 checkpoints: wall {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",

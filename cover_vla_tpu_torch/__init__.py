@@ -13,5 +13,8 @@ adapters and tokenizers they need), and the serving path: int8 (w8a8)
 serving (`ops/quant.py`), pi0-FAST (`models/pi0fast.py`), the policy
 wrappers and websocket server (`serving/`), the policy factory
 (`models/factory.py`) and remote evaluation
-(`eval/remote_evaluator.py`).
+(`eval/remote_evaluator.py`); checkpoint conversion and loading
+(`convert/`: lerobot π0 / π0-FAST and merged verifier checkpoints, the
+blob checkpoint format, the convert-once cache) behind the wrappers'
+`switch_model`, and the `run.py` entry point (`serve_policy`, `eval`).
 """

@@ -1,0 +1,140 @@
+"""Checkpoint save/load + rotation/resume semantics.
+
+The port's native checkpoint is a directory holding one ``params.blob``
+(`convert/blob.py`): written leaf by leaf from any device, loaded as
+memory-mapped host tensors and moved to the device in one pass. The JAX
+package writes orbax directories instead; orbax needs ``jax``, so the port
+cannot read them and says so (`load_params` raises ValueError). A JAX tree
+reaches the port through a blob (the JAX package's ``convert/blob.py``
+``save_tree`` into ``<dir>/params.blob``, which `load_params` reads) or in
+memory through `convert/from_jax.py`.
+
+Replaces the reference's three checkpoint families:
+  * full train-state checkpoints (model + optimizer + scheduler + step),
+  * weights-only exports,
+  * rotation keeping the last K (the verifier trainer's
+    manage_checkpoints).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+from typing import Any, List, Optional
+
+from cover_vla_tpu_torch.convert import blob
+from cover_vla_tpu_torch.device import resolve_device
+from cover_vla_tpu_torch.models.params import ParamTree
+
+BLOB_NAME = "params.blob"
+# files an orbax PyTreeCheckpointer directory holds
+_ORBAX_MARKERS = ("_METADATA", "_CHECKPOINT_METADATA", "manifest.ocdbt",
+                  "_sharding", "checkpoint")
+
+
+def save_params(path: str, params: Any) -> str:
+    """Write a tree (ParamTree or nested dicts of tensors) as the blob
+    directory `path`, replacing whatever was there."""
+    path = os.path.abspath(path)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    blob.save_tree(os.path.join(path, BLOB_NAME), params)
+    return path
+
+
+def _restore(tree, target, dev, where: str = "") -> dict:
+    """`tree` moved to `dev`. With `target`, the two must hold the same
+    keys and each leaf is cast to the target leaf's dtype (the restore
+    args of the JAX package's orbax load)."""
+    if target is not None:
+        missing = [k for k in target if k not in tree]
+        extra = [k for k in tree if k not in target]
+        if missing or extra:
+            raise KeyError(f"checkpoint and target differ under "
+                           f"{where or '/'}: missing {missing}, "
+                           f"unexpected {extra}")
+    out = {}
+    for key, leaf in tree.items():
+        want = None if target is None else target[key]
+        out[key] = (_restore(leaf, want, dev, f"{where}/{key}")
+                    if isinstance(leaf, dict)
+                    else leaf.to(dev, leaf.dtype if want is None
+                                 else want.dtype))
+    return out
+
+
+def load_params(path: str, target: Optional[Any] = None,
+                device=None) -> ParamTree:
+    """Load a blob directory as a ParamTree on `device` (CUDA unless given).
+    With `target`, the checkpoint must hold the target's keys and each
+    leaf is cast to the target leaf's dtype."""
+    path = os.path.abspath(path)
+    f = os.path.join(path, BLOB_NAME)
+    if not os.path.isfile(f):
+        if os.path.isdir(path) and any(
+                os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
+            raise ValueError(
+                f"{path!r} is an orbax checkpoint, which needs jax to read; "
+                "the PyTorch port reads blob directories only. Bring a JAX "
+                "tree across with the JAX package's convert/blob.py "
+                f"(save_tree('<dir>/{BLOB_NAME}', tree)) or, in memory, with "
+                "cover_vla_tpu_torch.convert.from_jax")
+        raise FileNotFoundError(f"no {BLOB_NAME} checkpoint at {path!r}")
+    return ParamTree(_restore(blob.load_tree(f), target,
+                              resolve_device(device)))
+
+
+def save_train_state(root: str, step: int, state: Any,
+                     keep_last: int = 3) -> str:
+    """Save under root/step_<N>/ and rotate old checkpoints."""
+    path = os.path.join(os.path.abspath(root), f"step_{step:08d}")
+    save_params(path, state)
+    rotate_checkpoints(root, keep_last)
+    return path
+
+
+def list_checkpoints(root: str) -> List[str]:
+    if not os.path.isdir(root):
+        return []
+    entries = [d for d in os.listdir(root)
+               if re.fullmatch(r"step_\d+", d)]
+    return [os.path.join(root, d) for d in sorted(entries)]
+
+
+def latest_checkpoint(root: str) -> Optional[str]:
+    cks = list_checkpoints(root)
+    return cks[-1] if cks else None
+
+
+def rotate_checkpoints(root: str, keep_last: int) -> None:
+    cks = list_checkpoints(root)
+    for old in cks[:-keep_last] if keep_last > 0 else []:
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def cleanup_empty_runs(runs_root: str) -> int:
+    """Remove run directories that contain no checkpoints (the reference's
+    empty-run cleanup). Returns the number removed."""
+    removed = 0
+    if not os.path.isdir(runs_root):
+        return 0
+    for d in os.listdir(runs_root):
+        path = os.path.join(runs_root, d)
+        if os.path.isdir(path) and not list_checkpoints(path) \
+                and not os.listdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+            removed += 1
+    return removed
+
+
+def restore_train_state(root: str, target: Any,
+                        device=None) -> tuple[Any, int]:
+    """Resume from the latest checkpoint; returns (state, step). Without
+    a checkpoint, (target, 0)."""
+    path = latest_checkpoint(root)
+    if path is None:
+        return target, 0
+    step = int(os.path.basename(path).split("_")[1])
+    return load_params(path, target=target, device=device), step

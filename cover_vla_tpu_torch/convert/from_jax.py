@@ -6,7 +6,9 @@ leaf already turned into a numpy array
 (``jax.tree_util.tree_map(np.asarray, tree)``). The port keeps
 the same layout, so conversion copies each leaf to a tensor. bf16 leaves
 arrive with numpy's ``bfloat16`` extension dtype, which ``torch.from_numpy``
-refuses; they are reinterpreted bit for bit through uint16.
+refuses; they are reinterpreted bit for bit through uint16. Host trees of
+torch tensors (the port's own checkpoint loaders, `convert/loaders.py`)
+take the same path: each leaf is moved to the device as it is.
 
 The structure is checked against the port's own initialiser for the same
 config: every leaf must exist with the same shape. Dtypes are kept as
@@ -27,22 +29,27 @@ from cover_vla_tpu_torch.models.params import ParamTree
 
 
 def to_tensor(x, device) -> torch.Tensor:
-    """numpy array (any float dtype, incl. bfloat16) -> tensor on device."""
+    """numpy array (any float dtype, incl. bfloat16) or tensor -> tensor on
+    device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     x = np.array(x)                     # an owned, writable copy
     if x.dtype.name == "bfloat16":
         return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(x).to(device)
 
 
-def _convert(tree: Mapping, ref, device, path: str = "") -> dict:
+def place_like(tree: Mapping, ref, device, path: str = "") -> dict:
+    """`tree`'s leaves as tensors on `device` (resolved), checked against
+    `ref`: the same keys, every leaf the same shape."""
     out = {}
     for key, value in tree.items():
         where = f"{path}/{key}"
         if ref is not None and key not in ref:
             raise KeyError(f"unexpected parameter {where}")
         sub = ref[key] if ref is not None else None
-        if isinstance(value, Mapping):
-            out[key] = _convert(value, sub, device, where)
+        if isinstance(value, (Mapping, ParamTree)):
+            out[key] = place_like(value, sub, device, where)
             continue
         t = to_tensor(value, device)
         if sub is not None and t.shape != sub.shape:
@@ -65,7 +72,7 @@ def pi0_from_jax(tree: Mapping, cfg: Pi0Config, device=None) -> ParamTree:
     """pi0 parameters from the reference package's (numpy) tree."""
     dev = resolve_device(device)
     ref = _reference_tree(lambda d: pi0.init_pi0(0, cfg, device=d))
-    return ParamTree(_convert(tree, ref, dev))
+    return ParamTree(place_like(tree, ref, dev))
 
 
 def pi0fast_from_jax(tree: Mapping, cfg: pi0fast.Pi0FastConfig,
@@ -73,7 +80,7 @@ def pi0fast_from_jax(tree: Mapping, cfg: pi0fast.Pi0FastConfig,
     """pi0-FAST parameters from the reference package's (numpy) tree."""
     dev = resolve_device(device)
     ref = _reference_tree(lambda d: pi0fast.init_pi0fast(0, cfg, device=d))
-    return ParamTree(_convert(tree, ref, dev))
+    return ParamTree(place_like(tree, ref, dev))
 
 
 def verifier_from_jax(tree: Mapping, cfg: VerifierConfig,
@@ -81,11 +88,11 @@ def verifier_from_jax(tree: Mapping, cfg: VerifierConfig,
     """Verifier parameters (any member count, optional "calibration")
     from the reference package's (numpy) tree."""
     dev = resolve_device(device)
-    members = np.asarray(tree["members"]["logit_scale"]).shape[0]
+    members = tree["members"]["logit_scale"].shape[0]
     ref = _reference_tree(lambda d: verifier.init_verifier(
         0, cfg, members, device=d))
     checked = {k: v for k, v in tree.items() if k != "calibration"}
-    out = _convert(checked, ref, dev)
+    out = place_like(checked, ref, dev)
     if "calibration" in tree:
-        out["calibration"] = _convert(tree["calibration"], None, dev)
+        out["calibration"] = place_like(tree["calibration"], None, dev)
     return ParamTree(out)

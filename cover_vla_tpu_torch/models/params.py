@@ -47,6 +47,9 @@ class ParamTree(nn.Module):
     def get(self, key: str, default=None):
         return self[key] if key in self._keys else default
 
+    def items(self) -> Iterator[tuple]:
+        return ((k, getattr(self, k)) for k in self._keys)
+
 
 def take_layer(tree, i: int, axis: int = 0) -> dict:
     """Layer i of a tree whose leaves are stacked along `axis`, as nested
@@ -68,21 +71,33 @@ class Init:
                     else torch.Generator(device=device).manual_seed(seed))
 
     def normal(self, shape, std: float, dtype=torch.bfloat16) -> torch.Tensor:
+        if self.gen is None:
+            return self._meta(shape, dtype)
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device)
         return (x * std).to(dtype)
 
     def uniform(self, shape, bound: float,
                 dtype=torch.float32) -> torch.Tensor:
+        if self.gen is None:
+            return self._meta(shape, dtype)
         x = torch.rand(shape, generator=self.gen, dtype=torch.float32,
                        device=self.device)
         return ((2.0 * x - 1.0) * bound).to(dtype)
+
+    def _meta(self, shape, dtype) -> torch.Tensor:
+        # shapes and dtypes only, without arithmetic: the first arithmetic
+        # on the meta device imports PyTorch's Python meta kernels (seconds)
+        return torch.empty(shape, dtype=dtype, device=self.device)
 
     def zeros(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def ones(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.ones(shape, dtype=dtype, device=self.device)
+
+    def full(self, shape, value: float, dtype=torch.float32) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
 
     def linear(self, fan_in: int, fan_out: int, lead=()) -> dict:
         """fp32 {kernel [.., in, out], bias [.., out]} ~ U(+-fan_in**-0.5)."""

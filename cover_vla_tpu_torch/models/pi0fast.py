@@ -214,9 +214,14 @@ class Pi0FastPolicy:
         return {"actions": np.asarray(action[0])}
 
     def switch_model(self, path: str) -> None:
-        raise NotImplementedError(
-            f"cannot load the pi0-FAST checkpoint {path!r}: checkpoint "
-            "loading (convert/loaders.py) is not ported yet")
+        """Swap the served checkpoint (a lerobot pi0-FAST .safetensors /
+        .pt / .bin or save_pretrained directory, through
+        `convert_pi0fast`, or a blob directory) onto the policy's device;
+        the parameters change only after a successful load, then the
+        queue resets."""
+        from cover_vla_tpu_torch.convert.loaders import load_pi0fast_params
+        self.params = load_pi0fast_params(path, self.cfg, device=self.device)
+        self.reset()
 
     def decode_tokens(self, pg_tokens: np.ndarray) -> np.ndarray:
         """PaliGemma tokens -> [B, chunk, action_dim] actions."""

@@ -111,8 +111,8 @@ def init_verifier(seed: int, cfg: VerifierConfig, num_members: int = 1, *,
         "backbone": {"vision": siglip.init_vit(init, cfg.vision),
                      "text": siglip.init_text_tower(init, cfg.text)},
         "members": {
-            "logit_scale": init.ones((m,)) * cfg.logit_scale_init,
-            "tave_temperature": init.ones((m,)) * cfg.tave_temperature_init,
+            "logit_scale": init.full((m,), cfg.logit_scale_init),
+            "tave_temperature": init.full((m,), cfg.tave_temperature_init),
             "text_pooling": init_attention_pooling(
                 init, m, cfg.text.embed_dim, cfg.text_pooling_output_dim,
                 cfg.pooling_layers, cfg.num_readouts),

@@ -1,0 +1,272 @@
+"""Unified CLI entry point of the PyTorch port.
+
+Roles ported so far:
+  serve_policy     — websocket policy server (pi0 or CoVer engine)
+  eval             — closed-loop CoVer evaluation on a benchmark suite
+
+The JAX package's `train`, `train_pi0fast`, `train_verifier` and `bench`
+roles are not ported yet: `main` stops on them with SystemExit. The
+config classes are the JAX package's, field for field and default for
+default, so every YAML of `config/` parses the same in both packages.
+
+Usage: python -m cover_vla_tpu_torch.run --role serve_policy \
+       --serve.mode cover --serve.checkpoint <pi0 checkpoint>
+
+Everything runs on the first CUDA device; `build_server` and `role_eval`
+take `device=` for callers that want another (the tests pass "cpu").
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class TrainCfg:
+    batch_size: int = 32
+    num_steps: int = 1000
+    lr: float = 5e-5
+    warmup_steps: int = 100
+    grad_accum: int = 1
+    optimizer: str = "adamw"    # adamw | adamw_8bit (quantised moments)
+    train_expert_only: bool = True   # freeze VLM+vision; grads/moments only
+                                     # for the expert + projections
+    dp: int = 0                 # 0 = auto (all devices on fsdp)
+    fsdp: int = 0
+    checkpoint_dir: str = "checkpoints"
+    save_every: int = 500
+    keep_last: int = 3
+    resume: bool = False
+    dataset_dir: str = ""       # dir of .npz trajectories / rlds shards
+    data_format: str = "npz"    # npz | rlds (TFDS/OXE TFRecord shards)
+    shuffle_buffer: int = 1000  # interleave shuffle buffer
+    augment: bool = False       # random_resized_crop + color jitter
+    paraphrase_json: str = ""   # rephrase store for ParaphraseAugment
+    paraphrase_prob: float = 0.5
+    val_every: int = 0          # 0 = no validation
+    val_batches: int = 4        # held-out batches rolled per validation
+    val_fraction: float = 0.1   # held-out fraction (verifier training)
+    num_members: int = 3        # verifier ensemble size
+    metrics_jsonl: str = ""     # default: <checkpoint_dir>/metrics.jsonl
+    wandb_project: str = ""
+    tiny: bool = False          # tiny model (CI)
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class ServeCfg:
+    host: str = "0.0.0.0"
+    port: int = 8000
+    mode: str = "pi0"           # pi0 | cover
+    checkpoint: str = ""
+    verifier_checkpoint: str = ""   # cover mode
+    n_samples: int = 5              # cover mode: candidates per prompt
+    n_rephrases: int = 8
+    tiny: bool = False
+    # serving a real checkpoint without real tokenizer artifacts emits
+    # garbage — refuse unless explicitly allowed
+    allow_hash_tokenizer: bool = False
+    tokenizer: str = ""             # policy tokenizer path override
+    # serving-time int8 (w8a8) quantization — same modes as EvalCfg
+    quantize: str = "none"
+
+
+@dataclass(frozen=True)
+class EvalCfg:
+    task_suite: str = "simpler_widowx"
+    num_trials_per_task: int = 10
+    max_steps: int = 150
+    n_samples: int = 5
+    n_rephrases: int = 8
+    # candidate selection: verifier (CoVer loop) | random | first — the
+    # ablation arms of the reference's headline table
+    selection: str = "verifier"
+    # >1 routes through the lockstep-batched engine (the reference's
+    # n_parallel_eval)
+    n_parallel: int = 1
+    # two-cohort pipelined dispatch (2*n_parallel episodes in flight)
+    pipelined: bool = False
+    out_dir: str = "eval_out"
+    policy_checkpoint: str = ""
+    verifier_checkpoint: str = ""
+    # dataset-statistics JSON for BOTH the engine normalization and the env
+    # adapter ("" = vendored bridge stats). google_robot suites REQUIRE an
+    # explicit (fractal) path — Bridge bounds would silently mis-normalize
+    dataset_statistics: str = ""
+    tokenizer: str = ""             # policy tokenizer path override
+    verifier_tokenizer: str = ""
+    allow_hash_tokenizer: bool = False
+    # serving-time int8 (w8a8) quantization (ops/quant.py): none | int8
+    # (policy Gemma stacks + vision tower) | int8_full (also the verifier's
+    # SigLIP2 backbone)
+    quantize: str = "none"
+    tiny: bool = False
+    seed: int = 7
+
+
+@dataclass(frozen=True)
+class RunCfg:
+    role: str = "eval"
+    train: TrainCfg = TrainCfg()
+    serve: ServeCfg = ServeCfg()
+    eval: EvalCfg = EvalCfg()
+
+
+_QUANTIZE_MODES = ("none", "int8", "int8_full")
+
+
+def build_server(cfg: RunCfg, device=None):
+    """The websocket server of `--role serve_policy`, not yet serving."""
+    from cover_vla_tpu_torch.configs import Pi0Config, tiny_pi0_config
+    from cover_vla_tpu_torch.convert.loaders import (
+        load_policy_params, load_verifier_params)
+    from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
+    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.models import pi0
+    from cover_vla_tpu_torch.serving import (
+        Pi0PolicyWrapper, WebsocketPolicyServer)
+
+    s = cfg.serve
+    if s.quantize not in _QUANTIZE_MODES:
+        raise SystemExit(f"--serve.quantize {s.quantize!r}: "
+                         "expected none | int8 | int8_full")
+    dev = resolve_device(device)
+    mcfg = tiny_pi0_config() if s.tiny else Pi0Config()
+    tok = make_policy_tokenizer(
+        mcfg.paligemma.vocab_size,
+        **({"hf_path": s.tokenizer} if s.tokenizer else {}),
+        strict=bool(s.checkpoint) and not s.allow_hash_tokenizer)
+    params = load_policy_params(s.checkpoint, mcfg, device=dev) \
+        if s.checkpoint else pi0.init_pi0(0, mcfg, device=dev)
+    if s.mode == "cover":
+        # the fused sample->score->select engine behind the same RPC verbs
+        from cover_vla_tpu_torch.configs import (
+            CoVerConfig, VerifierConfig, tiny_verifier_config)
+        from cover_vla_tpu_torch.engine import CoVerEngine
+        from cover_vla_tpu_torch.eval.rephrase import load_rephrases
+        from cover_vla_tpu_torch.models import verifier
+        from cover_vla_tpu_torch.serving import CoVerPolicyWrapper
+        vcfg = tiny_verifier_config() if s.tiny else VerifierConfig()
+        vp = load_verifier_params(s.verifier_checkpoint, vcfg, device=dev) \
+            if s.verifier_checkpoint \
+            else verifier.init_verifier(1, vcfg, 3, device=dev)
+        engine = CoVerEngine(params, vp, mcfg, vcfg,
+                             CoVerConfig(n_samples=s.n_samples,
+                                         n_rephrases=s.n_rephrases),
+                             policy_tokenizer=tok,
+                             rephrases=load_rephrases(), device=dev)
+        policy = CoVerPolicyWrapper(engine, quantize=s.quantize)
+    else:
+        policy = Pi0PolicyWrapper(params, mcfg, tokenizer=tok,
+                                  quantize=s.quantize, device=dev)
+    return WebsocketPolicyServer(policy, s.host, s.port,
+                                 metadata={"model": s.mode})
+
+
+def role_serve(cfg: RunCfg):
+    server = build_server(cfg)
+    s = cfg.serve
+    print(f"serving {s.mode} on ws://{s.host}:{s.port}")
+    server.serve_forever()
+
+
+def role_eval(cfg: RunCfg, device=None):
+    """Closed-loop evaluation of a benchmark suite; prints the summary."""
+    from cover_vla_tpu_torch.configs import (
+        CoVerConfig, Pi0Config, VerifierConfig, tiny_pi0_config,
+        tiny_verifier_config)
+    from cover_vla_tpu_torch.convert.loaders import (
+        load_policy_params, load_verifier_params)
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.data.tokenizer import (
+        make_policy_tokenizer, make_verifier_tokenizer)
+    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.engine import CoVerEngine
+    from cover_vla_tpu_torch.eval.evaluator import (
+        CoVerEvaluator, EvalConfig, evaluate_suite_batched)
+    from cover_vla_tpu_torch.eval.rephrase import load_rephrases
+    from cover_vla_tpu_torch.models import pi0, verifier
+
+    e = cfg.eval
+    dev = resolve_device(device)
+    pcfg = tiny_pi0_config() if e.tiny else Pi0Config()
+    vcfg = tiny_verifier_config() if e.tiny else VerifierConfig()
+    ccfg = CoVerConfig(n_samples=e.n_samples, n_rephrases=e.n_rephrases,
+                       selection=e.selection,
+                       gripper_vote=(e.selection == "verifier"))
+    # real checkpoints demand real tokenizers unless explicitly overridden
+    strict = bool(e.policy_checkpoint) and not e.allow_hash_tokenizer
+    ptok = make_policy_tokenizer(
+        pcfg.paligemma.vocab_size,
+        **({"hf_path": e.tokenizer} if e.tokenizer else {}), strict=strict)
+    vtok = make_verifier_tokenizer(
+        vcfg.text.vocab_size, hf_path=e.verifier_tokenizer or None,
+        strict=bool(e.verifier_checkpoint) and not e.allow_hash_tokenizer)
+    is_google = e.task_suite.startswith("simpler_google")
+    if is_google and not e.dataset_statistics:
+        raise SystemExit(
+            "google_robot suites require --eval.dataset_statistics "
+            "(fractal statistics); the vendored Bridge bounds would "
+            "silently mis-normalize fractal-trained checkpoints")
+    stats = DatasetStatistics.from_json(e.dataset_statistics) \
+        if e.dataset_statistics else DatasetStatistics.from_json()
+    pp = load_policy_params(e.policy_checkpoint, pcfg, device=dev) \
+        if e.policy_checkpoint else pi0.init_pi0(0, pcfg, device=dev)
+    vp = load_verifier_params(e.verifier_checkpoint, vcfg, device=dev) \
+        if e.verifier_checkpoint \
+        else verifier.init_verifier(1, vcfg, 3, device=dev)
+    if e.quantize not in _QUANTIZE_MODES:
+        raise SystemExit(f"--eval.quantize {e.quantize!r}: "
+                         "expected none | int8 | int8_full")
+    if e.quantize != "none":
+        from cover_vla_tpu_torch.ops import quant
+        pp = quant.quantize_pi0_policy(pp)
+        if e.quantize == "int8_full":
+            vp = quant.quantize_verifier(vp)
+    ecfg = EvalConfig(
+        task_suite=e.task_suite, num_trials_per_task=e.num_trials_per_task,
+        max_steps=e.max_steps, out_dir=e.out_dir, seed=e.seed)
+    if e.n_parallel > 1:
+        out = evaluate_suite_batched(
+            pp, vp, pcfg, vcfg, ccfg, ecfg, n_parallel=e.n_parallel,
+            stats=stats, rephrases=load_rephrases(), pipelined=e.pipelined,
+            seed=e.seed, policy_tokenizer=ptok, verifier_tokenizer=vtok,
+            device=dev)
+        print(json.dumps({**out["summary"],
+                          "actions_per_sec": round(out["actions_per_sec"], 2),
+                          "wall_s": round(out["wall_s"], 2)}, indent=2))
+        return
+    engine = CoVerEngine(pp, vp, pcfg, vcfg, ccfg, stats=stats,
+                         policy_tokenizer=ptok, verifier_tokenizer=vtok,
+                         rephrases=load_rephrases(), seed=e.seed, device=dev)
+    ev = CoVerEvaluator(engine, ecfg,
+                        stats=None if is_google else stats,
+                        fractal_stats=stats if is_google else None)
+    out = ev.evaluate()
+    print(json.dumps(out["summary"], indent=2))
+
+
+# the JAX package's roles this port does not have yet, and where they wait
+_NOT_PORTED = {"train": "A.3", "train_pi0fast": "A.3",
+               "train_verifier": "A.3", "bench": "A.6"}
+
+
+def main(argv=None):
+    from cover_vla_tpu_torch.utils.cli import parse
+    cfg = parse(RunCfg, argv)
+    if cfg.role in _NOT_PORTED:
+        raise SystemExit(
+            f"role {cfg.role!r} is not ported to the PyTorch port yet "
+            f"(ROADMAP {_NOT_PORTED[cfg.role]}); ported roles: serve_policy, "
+            "eval")
+    role = {"serve_policy": role_serve, "eval": role_eval}.get(cfg.role)
+    if role is None:
+        raise SystemExit(
+            f"unknown role {cfg.role!r} "
+            f"(train|train_pi0fast|train_verifier|serve_policy|eval|bench)")
+    role(cfg)
+
+
+if __name__ == "__main__":
+    main()

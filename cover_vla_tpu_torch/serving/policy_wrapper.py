@@ -9,10 +9,10 @@ verbs. Two wrappers:
 
 Both take a serving mode `quantize`: "none", "int8" (w8a8 policy: both
 Gemma stacks and the SigLIP tower) or "int8_full" (the verifier's ViT
-backbone too, where there is one). The transform is re-applied to every
-checkpoint `switch_model` loads. Loading checkpoints from disk is not part
-of the port yet: `switch_model` raises NotImplementedError and leaves the
-served parameters as they were.
+backbone too, where there is one). `switch_model` loads any format of
+`convert/loaders.py` onto the wrapper's device and re-applies the
+transform to a switched policy; the served parameters change only after a
+successful load.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from cover_vla_tpu_torch.configs import Pi0Config
+from cover_vla_tpu_torch.convert.loaders import (
+    load_policy_params, load_verifier_params)
 from cover_vla_tpu_torch.data.tokenizer import Tokenizer, make_policy_tokenizer
 from cover_vla_tpu_torch.device import resolve_device
 from cover_vla_tpu_torch.engine import CoVerEngine
@@ -37,14 +39,6 @@ def _check_mode(quantize: str) -> None:
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r} "
                          f"({' | '.join(QUANTIZE_MODES)})")
-
-
-def _load_params(path: str, what: str):
-    """Checkpoint loading (orbax, lerobot safetensors, torch .pt) belongs
-    to convert/loaders.py, which the port does not have yet."""
-    raise NotImplementedError(
-        f"cannot load the {what} checkpoint {path!r}: checkpoint loading "
-        "(convert/loaders.py) is not ported yet")
 
 
 class Pi0PolicyWrapper:
@@ -83,10 +77,11 @@ class Pi0PolicyWrapper:
         self.adapter.reset()
 
     def switch_model(self, path: str) -> None:
-        """Swap the served checkpoint: the parameters change only after a
-        successful load (and quantization), then the queue and adapter
-        reset."""
-        self.params = self._maybe_quantize(_load_params(path, "policy"))
+        """Swap the served checkpoint (any format of convert/loaders.py):
+        the parameters change only after a successful load (and
+        quantization), then the queue and adapter reset."""
+        self.params = self._maybe_quantize(
+            load_policy_params(path, self.cfg, device=self.device))
         self.reset()
 
     @torch.no_grad()
@@ -139,15 +134,21 @@ class CoVerPolicyWrapper:
 
     def switch_model(self, path: str) -> None:
         """Swap the engine's POLICY checkpoint (the verifier stays); a
-        "verifier:<path>" prefix switches the verifier ensemble instead.
-        Parameters change only after a successful load; the policy is
-        re-quantized in the int8 modes."""
+        "verifier:<path>" prefix switches the verifier ensemble instead (a
+        heads-only merged .pt reuses the current backbone). Parameters
+        change only after a successful load. Only the policy is
+        re-quantized in the int8 modes: under int8_full the backbone a
+        heads-only .pt reuses is already quantized, and a verifier
+        checkpoint that brings its own backbone is served as loaded (as in
+        the JAX package)."""
         eng = self.engine
         if path.startswith("verifier:"):
-            eng.verifier_params = _load_params(path[len("verifier:"):],
-                                               "verifier")
+            eng.verifier_params = load_verifier_params(
+                path[len("verifier:"):], eng.vcfg,
+                backbone_params=eng.verifier_params.get("backbone"),
+                device=eng.device)
         else:
-            pp = _load_params(path, "policy")
+            pp = load_policy_params(path, eng.pcfg, device=eng.device)
             if self.quantize != "none":
                 pp = quant.quantize_pi0_policy(pp)
             eng.policy_params = pp

@@ -1,5 +1,7 @@
 """Package boundary of the PyTorch port: it imports neither jax nor the
-JAX package, and its entry points do not fall back to the CPU silently."""
+JAX package (nor safetensors or ml_dtypes, which a CUDA installation need
+not have; yaml only where a YAML file is read), and its entry points do
+not fall back to the CPU silently."""
 
 import os
 import pkgutil
@@ -38,11 +40,18 @@ def test_every_module_imports_without_jax():
                  "ops.quant", "models.pi0fast", "models.factory",
                  "data.fast_tokenizer", "serving", "serving.msgpack_numpy",
                  "serving.policy_service", "serving.policy_wrapper",
-                 "eval.remote_evaluator"):
+                 "eval.remote_evaluator", "convert.blob",
+                 "convert.checkpoints", "convert.from_jax",
+                 "convert.loaders", "convert.pi0_from_torch",
+                 "convert.pi0fast_from_torch", "convert.verifier_from_torch",
+                 "convert.verifier_to_torch", "utils", "utils.cli",
+                 "utils.geometry", "utils.metrics_sink", "utils.monitor",
+                 "utils.tree", "run"):
         assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['cover_vla_tpu'] = None\n"
+            "for m in ('jax', 'cover_vla_tpu', 'safetensors', 'ml_dtypes',\n"
+            "          'yaml'):\n"
+            "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -75,12 +84,15 @@ def test_serving_imports_without_its_transport():
 
 
 def test_no_source_names_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|cover_vla_tpu)(\.|\s|$)",
-                         re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|cover_vla_tpu|safetensors"
+                         r"|ml_dtypes)(\.|\s|$)", re.MULTILINE)
+    top_level_yaml = re.compile(r"^(import|from)\s+yaml(\.|\s|$)",
+                                re.MULTILINE)
     for path in _sources():
         with open(path) as f:
             text = f.read()
         assert not pattern.search(text), path
+        assert not top_level_yaml.search(text), path
         assert "cover_vla_tpu." not in text.replace("cover_vla_tpu_torch.", ""), (
             f"{path} names a module of the JAX package")
 
