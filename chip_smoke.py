@@ -59,7 +59,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      allow_hash_tokenizer, and with a heads-only .pt as its first
      verifier), answering infer x3, reset, switch_model to a second π0 (a
      blob directory), infer, switch_model to verifier:<heads .pt>, infer:
-     the switched trees bit-equal, request p50, switch seconds.
+     the switched trees bit-equal, request p50, switch seconds;
+  8. training: the tiny π0 (fp32) through 3 partitioned adamw_8bit steps
+     and 3 full adamw steps with grad_accum 2 on the card against the same
+     on the CPU (loss, grad norm, every leaf, the int8 grids); a random
+     full-width π0, expert-only with remat at B = 32, 6 steps of
+     adamw_8bit then 6 of adamw (step time, card peak, losses, trainable
+     count against its reckoning, frozen leaves bit-equal), and one step
+     of the whole tree under adamw; run.main --role train at full width
+     over two npz trajectories (4 steps with validation and checkpoints,
+     then resumed to 6: the restored state bit-equal to the saved one,
+     metrics.jsonl keys, the files deleted); validate_pi0 on the trained
+     weights under the all-kernel config (launches 180/27/18 a call) and
+     the eager one (chunks within 1e-2, the same accuracies).
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -1981,6 +1993,436 @@ def checkpoint_phase(torch, card, dev, pcfg, vcfg, pp, vp):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+# Card vs CPU through the tiny train steps (fp32 weights, TF32 off): loss
+# and gradient norm within 1e-4 of themselves (1e-3 after an 8-bit step,
+# whose outlier elements move them), parameters within 1e-5 (1% of the
+# learning rate) in all but a share of elements, 8-bit grids differing in
+# a share of entries. Adam divides each gradient by its own RMS, so an
+# element whose gradient is rounding noise on both devices steps by a
+# noise-driven fraction of lr; 8-bit AdamW rounds ~1e-7 differences into
+# different int8 grid entries, and an element whose second moment rounds
+# to 0 then steps by many times lr. The same bounds hold the port against
+# the JAX package (tests/test_torch_training.py).
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_SHARE = {"adamw": 1e-4, "adamw_8bit": 1e-2}
+TRAIN_GRID_SHARE = 1e-2
+
+
+def train_batch(np_rng, cfg, b, pad_rows=1):
+    """A π0 training batch: frames in [-1, 1] at the tower's size, 72
+    prompt tokens with a padded tail, state, actions and a padded chunk
+    tail on `pad_rows` rows."""
+    s, t = cfg.vision.image_size, cfg.tokenizer_max_length
+    lmask = np.ones((b, t), bool)
+    lmask[:, t - 5:] = False
+    is_pad = np.zeros((b, cfg.chunk_size), bool)
+    is_pad[:pad_rows, -2:] = True
+    return {
+        "images": np_rng.uniform(-1, 1, (b, 1, s, s, 3)).astype(np.float32),
+        "img_masks": np.ones((b, 1), bool),
+        "lang_tokens": np_rng.integers(0, min(1000, cfg.paligemma.vocab_size),
+                                       (b, t)).astype(np.int32),
+        "lang_masks": lmask,
+        "state": np_rng.standard_normal((b, cfg.max_state_dim)
+                                        ).astype(np.float32),
+        "actions": np_rng.standard_normal(
+            (b, cfg.chunk_size, cfg.max_action_dim)).astype(np.float32),
+        "actions_is_pad": is_pad}
+
+
+def to_device(torch, batch, dev):
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in batch.items()}
+
+
+def training_small_reference(torch, dev):
+    """8a: the tiny π0 (fp32) through 3 partitioned adamw_8bit steps and 3
+    full adamw steps with grad_accum 2, on the card and on the CPU from
+    the same tree, batch, noise and flow times."""
+    from cover_vla_tpu_torch.configs import replace, tiny_pi0_config
+    from cover_vla_tpu_torch.models import pi0
+    from cover_vla_tpu_torch.models.params import ParamTree
+    from cover_vla_tpu_torch.training import optim, train_pi0
+    from cover_vla_tpu_torch.utils.tree import flatten, unflatten
+
+    cfg = replace(tiny_pi0_config(), compute_dtype="float32")
+    base = {k: v.detach().float()
+            for k, v in flatten(pi0.init_pi0(0, cfg, device="cpu")).items()}
+    rng = np.random.default_rng(8)
+    batch = train_batch(rng, cfg, 4)
+    noise = rng.standard_normal((4, cfg.chunk_size, cfg.max_action_dim)
+                                ).astype(np.float32)
+    time_ = rng.uniform(0.001, 1.0, (4,)).astype(np.float32)
+    for opt, partitioned, accum in (("adamw_8bit", True, 1),
+                                    ("adamw", False, 2)):
+        runs = {}
+        for d in ("cpu", dev):
+            tree = ParamTree(unflatten({k: v.clone().to(d)
+                                        for k, v in base.items()}))
+            # no warmup: optax AdamW's first update (count 0) moves the
+            # parameters, so the second call of grad_accum 2 does
+            tx = train_pi0.make_optimizer(optim.warmup_cosine(1e-3, 0, 20),
+                                          optimizer=opt,
+                                          accumulate_steps=accum)
+            if partitioned:
+                mask = train_pi0.freeze_mask(tree)
+                state = train_pi0.init_partitioned_state(tree, tx, mask)
+                step = train_pi0.make_partitioned_train_step(cfg, tx, mask)
+            else:
+                leaves = {k: v.requires_grad_(True)
+                          for k, v in flatten(tree).items()}
+                state = train_pi0.TrainState(tree, tx.init(leaves),
+                                             optim.counter())
+                step = train_pi0.make_train_step(cfg, tx)
+            out = []
+            for _ in range(3):
+                state, m = step(state, None, to_device(torch, batch, d),
+                                noise=torch.from_numpy(noise).to(d),
+                                time=torch.from_numpy(time_).to(d))
+                # copies: on the CPU `.cpu()` would alias the live tensors
+                grids = ({k: q["values"].to("cpu", copy=True) for k, q in
+                          state.opt_state["1"]["mu"].items()}
+                         if opt == "adamw_8bit" else {})
+                out.append((m["loss"].item(), m["grad_norm"].item(),
+                            {k: v.detach().to("cpu", copy=True) for k, v in
+                             flatten(state.params).items()}, grids))
+            runs[str(d)] = out
+        for i, (c, g) in enumerate(zip(runs["cpu"], runs[str(dev)])):
+            rel = 1e-3 if opt == "adamw_8bit" and i else 1e-4
+            d_loss = abs(g[0] - c[0]) / abs(c[0])
+            d_norm = abs(g[1] - c[1]) / abs(c[1])
+            diffs = torch.cat([(g[2][k] - c[2][k]).abs().reshape(-1)
+                               for k in c[2]])
+            share = (diffs > TRAIN_PARAM_ATOL).float().mean().item()
+            grid_share = (sum(int((g[3][k] != c[3][k]).sum()) for k in c[3])
+                          / max(1, sum(v.numel() for v in c[3].values())))
+            log(f"train small reference: {opt} "
+                f"{'partitioned' if partitioned else f'full, grad_accum {accum}'}"
+                f" step {i + 1}: loss card {g[0]:.6f} cpu {c[0]:.6f} (rel "
+                f"{d_loss:.2e}), grad_norm rel {d_norm:.2e}, parameters beyond "
+                f"{TRAIN_PARAM_ATOL:g}: {share:.2e} of {diffs.numel()} "
+                f"(largest {diffs.max().item():.2e})"
+                + (f", int8 grid entries differing {grid_share:.2e}"
+                   if opt == "adamw_8bit" else ""))
+            assert d_loss <= rel and d_norm <= rel, (opt, i, d_loss, d_norm)
+            assert share <= TRAIN_SHARE[opt], (opt, i, share)
+            if opt == "adamw":
+                assert diffs.max().item() <= 1e-4, (opt, i)
+            assert grid_share <= TRAIN_GRID_SHARE, (opt, i, grid_share)
+
+
+def trainable_reckoning(cfg) -> int:
+    """The expert stack plus the five fp32 projections, from the config."""
+    e, w = cfg.expert, cfg.proj_width
+    qd, kvd = e.num_heads * e.head_dim, e.num_kv_heads * e.head_dim
+    layer = (e.width * qd + 2 * e.width * kvd + qd * e.width
+             + 3 * e.width * e.mlp_dim + 2 * e.width)
+    linear = lambda i, o: i * o + o
+    return (e.depth * layer + e.width
+            + linear(cfg.max_state_dim, w) + linear(cfg.max_action_dim, w)
+            + linear(w, cfg.max_action_dim) + linear(2 * w, w) + linear(w, w))
+
+
+def timed_steps(torch, step, state, batch, n, seed):
+    """n synchronised steps: (state, step seconds, losses, grad norms)."""
+    secs, losses, norms = [], [], []
+    for i in range(n):
+        gen = torch.Generator(device=batch["state"].device).manual_seed(seed + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, gen, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+    return state, secs, losses, norms
+
+
+def training_full_width(torch, card, dev, cfg, b=32):
+    """8b: a random π0 of `cfg` (Pi0Config() on the card), expert-only with
+    remat, B = 32, one camera: 6 steps of adamw_8bit, then 6 of adamw,
+    then the whole tree under adamw. Returns (params, batch)."""
+    import gc
+    from cover_vla_tpu_torch.models import pi0
+    from cover_vla_tpu_torch.training import optim, train_pi0
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    params = pi0.init_pi0(7, cfg, device=dev)
+    batch = to_device(torch, train_batch(np.random.default_rng(9), cfg, b,
+                                         pad_rows=4), dev)
+    mask = train_pi0.freeze_mask(params, train_expert_only=True)
+    leaves, m = flatten(params), flatten(mask)
+    n_train = sum(v.numel() for k, v in leaves.items() if m[k])
+    n_all = sum(v.numel() for v in leaves.values())
+    want = trainable_reckoning(cfg)
+    log(f"train full width: {n_all / 1e9:.3f}B params, {n_train / 1e6:.3f}M "
+        f"trainable expert-only (reckoned {want / 1e6:.3f}M: the expert "
+        f"stack plus the projections), B = {b}, prefix "
+        f"{cfg.prefix_len} tokens, remat | {card}")
+    assert n_train == want, (n_train, want)
+    frozen = {k: v.detach().clone() for k, v in leaves.items() if not m[k]}
+    trained_before = {k: v.detach().clone() for k, v in leaves.items() if m[k]}
+    # the role's defaults: lr 5e-5, 100 warmup steps of 1000
+    schedule = optim.warmup_cosine(5e-5, 100, 1000)
+    state = None
+    for opt in ("adamw_8bit", "adamw"):
+        del state
+        gc.collect()
+        tx = train_pi0.make_optimizer(schedule, optimizer=opt)
+        state = train_pi0.init_partitioned_state(params, tx, mask)
+        step = train_pi0.make_partitioned_train_step(cfg, tx, mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, secs, losses, norms = timed_steps(torch, step, state, batch, 6,
+                                                 seed=100)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # two more steps: a warm one, then one under the profiler
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], torch.Generator(device=dev)
+                              .manual_seed(300), batch)
+        profile_step(torch, card, f"train B={b}", one_step,
+                     label=f"{opt} expert-only")
+        state = held[0]
+        log(f"train step {opt} expert-only B={b}: median of steps 2-6 "
+            f"{np.median(secs[1:]) * 1e3:.1f} ms (steps "
+            f"{[round(s * 1e3, 1) for s in secs]} ms), card peak "
+            f"{peak:.2f} GB | {card}")
+        log(f"  losses {[round(x, 5) for x in losses]}, grad norms "
+            f"{[round(x, 5) for x in norms]}")
+    after = flatten(state.params)
+    assert all(torch.equal(v, after[k]) for k, v in frozen.items()), \
+        "a frozen leaf changed"
+    changed = {k: (after[k] != v).float().mean().item()
+               for k, v in trained_before.items()}
+    log(f"train full width: frozen leaves ({len(frozen)}) bit-equal; share "
+        f"of changed elements per trained leaf after 12 steps: "
+        f"{ {k: round(c, 4) for k, c in changed.items()} }")
+    assert any(c > 0 for c in changed.values()), "no trained leaf changed"
+    del state, frozen, trained_before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the whole tree under adamw: gradients and bf16 moments for 3.24B
+    tx = train_pi0.make_optimizer(schedule)
+    every = {k: v.requires_grad_(True) for k, v in flatten(params).items()}
+    full = train_pi0.TrainState(params, tx.init(every), optim.counter())
+    full_step = train_pi0.make_train_step(cfg, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    full, secs, losses, norms = timed_steps(torch, full_step, full, batch, 2,
+                                            seed=200)
+    log(f"train step adamw whole tree ({n_all / 1e9:.3f}B trainable) B={b}: "
+        f"{[round(s * 1e3, 1) for s in secs]} ms (the first includes the "
+        f"allocator's growth), card peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, losses "
+        f"{[round(x, 5) for x in losses]} | {card}")
+    for k, v in flatten(params).items():
+        v.requires_grad_(m[k])
+    del full, every
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, batch
+
+
+def write_trajectories(root, n=2, frames=40, seed=11, hw=224):
+    """npz trajectories as run.py reads them: hw x hw uint8 frames, 7-dim
+    states and actions from a seed, a task string."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        np.savez(os.path.join(root, f"traj{i}.npz"),
+                 images=rng.integers(0, 256, (frames, hw, hw, 3),
+                                     dtype=np.uint8),
+                 states=rng.standard_normal((frames, 7)).astype(np.float32),
+                 actions=rng.uniform(-1, 1, (frames, 7)).astype(np.float32),
+                 task=("put the carrot on the plate", "open the drawer")[i % 2])
+
+
+def training_entry_point(torch, card, dev, cfg, tiny=False):
+    """8c: run.main --role train at the width of `cfg` (Pi0Config() on the
+    card; `tiny` for tiny_pi0_config()) with adamw_8bit, validation and
+    checkpoints for 4 steps, then resumed to step 6; the restored state
+    bit-equal to the saved one, metrics.jsonl with the JAX role's keys."""
+    import gc
+    import json
+    import shutil
+    import tempfile
+    from cover_vla_tpu_torch import run
+    from cover_vla_tpu_torch.convert import blob, checkpoints
+    from cover_vla_tpu_torch.training import optim, train_pi0
+    from cover_vla_tpu_torch.utils import param_bytes
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    tmp = tempfile.mkdtemp(prefix="cvla_train_")
+    try:
+        # another seed than the role's: every leaf must come from the file
+        tx = train_pi0.make_optimizer(optim.warmup_cosine(5e-5, 100, 6),
+                                      optimizer="adamw_8bit")
+        target, _ = train_pi0.init_partitioned_train_state(43, cfg, tx,
+                                                           device=dev)
+        save_gb = sum(v.numel() * v.element_size()
+                      for v in flatten(target._asdict()).values()) / 1e9
+        usage = shutil.disk_usage(tmp)
+        log(f"phase 8 disk: {tmp}: {usage.free / 1e9:.1f} GB free; a train "
+            f"state is {save_gb:.2f} GB ({param_bytes(target.params) / 1e9:.2f}"
+            f" GB of parameters), at most two at once")
+        if usage.free < 2.2 * save_gb * 1e9:
+            raise AssertionError(f"phase 8 needs {2.2 * save_gb:.1f} GB on "
+                                 f"{tmp}, {usage.free / 1e9:.1f} GB are free")
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        write_trajectories(data, hw=cfg.vision.image_size)
+        argv = ["--role", "train", "--train.tiny", str(tiny).lower(),
+                "--train.dataset_dir", data,
+                "--train.checkpoint_dir", ck, "--train.batch_size", "16",
+                "--train.val_every", "2", "--train.val_batches", "1",
+                "--train.save_every", "2", "--train.keep_last", "1",
+                "--train.optimizer", "adamw_8bit"]
+        t0 = time.perf_counter()
+        run.main(argv + ["--train.num_steps", "4"], device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        kept = [os.path.basename(p) for p in checkpoints.list_checkpoints(ck)]
+        assert kept == ["step_00000004"], kept
+        saved = blob.load_tree(os.path.join(ck, kept[0], checkpoints.BLOB_NAME))
+        t0 = time.perf_counter()
+        restored, at = checkpoints.restore_train_state(ck, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got, want = flatten(restored._asdict()), flatten(saved)
+        assert at == 4 and set(got) == set(want)
+        bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        assert not bad, f"restored leaves differ from the saved ones: {bad[:5]}"
+        log(f"train entry point: run.main --role train, 4 steps of B=16 at "
+            f"{'tiny' if tiny else 'full'} width (adamw_8bit, validation at "
+            f"2 and 4, saves at 2 and "
+            f"4, keep_last 1): {first_s:.1f} s; restored {len(want)} leaves "
+            f"of step 4 into a fresh state in {restore_s:.2f} s, bit-equal "
+            f"to the saved ones | {card}")
+        del restored, target, got, want, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run.main(argv + ["--train.num_steps", "6", "--train.resume", "true"],
+                 device=dev)
+        torch.cuda.synchronize()
+        log(f"train entry point: resumed to step 6 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        kept = [os.path.basename(p) for p in checkpoints.list_checkpoints(ck)]
+        assert kept == ["step_00000006"], kept
+        final = blob.load_tree(os.path.join(ck, kept[0], checkpoints.BLOB_NAME))
+        assert int(final["step"]) == 6
+        assert int(final["opt_state"]["1"]["count"]) == 6
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        keys = {frozenset(r) for r in recs}
+        want_keys = {frozenset({"_time", "_step", "loss", "grad_norm"}),
+                     frozenset({"_time", "_step", "val/acc@0.01",
+                                "val/acc@0.05", "val/acc@0.1", "val/mae"})}
+        assert keys == want_keys, keys
+        steps = [(r["_step"], "val/mae" in r) for r in recs]
+        # the JAX role logs the metrics of every 10th step (step 0 here)
+        # and validates after steps 2, 4 and 6
+        assert steps == [(0, False), (2, True), (4, True), (6, True)], steps
+        for r in recs:
+            assert all(math.isfinite(v) for k, v in r.items()), r
+        log(f"train entry point: metrics.jsonl {len(recs)} records, "
+            f"keys {sorted(set().union(*keys))}; last validation "
+            f"{ {k: round(v, 4) for k, v in recs[-1].items() if k.startswith('val/')} }")
+        del final
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not os.path.exists(tmp)
+    log(f"train entry point: {tmp} deleted")
+
+
+def training_kernels(torch, card, dev, pcfg, params, batch):
+    """8d: validate_pi0 on the trained weights under the all-kernel and the
+    eager configs: launches a call, the predicted chunks within 1e-2, the
+    accuracy dictionaries."""
+    from cover_vla_tpu_torch.configs import VerifierConfig
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.engine.verified_step import decode_candidates
+    from cover_vla_tpu_torch.models import pi0
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.training.validation import (
+        DEFAULT_THRESHOLDS, validate_pi0)
+
+    configs = kernel_configs(pcfg, VerifierConfig())
+    b = batch["state"].shape[0]
+    noise = torch.zeros((b, 1, pcfg.chunk_size, pcfg.max_action_dim),
+                        device=dev)
+    keys = ("images", "img_masks", "lang_tokens", "lang_masks", "state")
+    out = {}
+    for name in ("all_kernel", "eager"):
+        cfg = configs[name][0]
+        ca.reset_launch_counts()
+        acc = validate_pi0(params, cfg, batch)
+        counts = dict(ca.launch_counts)
+        with torch.no_grad():
+            chunk = pi0.sample_actions(params, cfg, *[batch[k] for k in keys],
+                                       num_candidates=1, noise=noise)
+        out[name] = (acc, counts, chunk)
+        log(f"train kernels: validate_pi0 on the trained weights, {name}: "
+            f"launches {counts}, {acc}")
+    want = {"shared_prefix_gqa": pcfg.expert.depth * pcfg.num_denoise_steps,
+            "mha_dense": pcfg.vision.depth,
+            "prefix_gqa": pcfg.paligemma.depth}      # 180, 27, 18
+    assert out["all_kernel"][1] == want, out["all_kernel"][1]
+    assert out["eager"][1] == dict.fromkeys(want, 0), out["eager"][1]
+    (ak, _, ck), (eg, _, ce) = out["all_kernel"], out["eager"]
+    # phase 4's bounds hold the decoded execution actions (the first six
+    # normalised dims scaled by the Bridge p01..p99 range) to FAST_ATOL and
+    # the raw gripper to twice that; the raw 32-dim outputs are held to the
+    # JAX package's fast-vs-exact bound (atol 0.05, rtol 0.1)
+    stats = DatasetStatistics.from_json()
+    lo, hi = (torch.tensor(np.asarray(x, np.float32), device=dev)
+              for x in (stats.action.p01, stats.action.p99))
+    (xk, _, gk), (xe, _, ge) = (decode_candidates(c[..., :7], lo, hi)
+                                for c in (ck, ce))
+    act_dev = (xk[..., :6] - xe[..., :6]).abs().max().item()
+    grip_dev = (gk - ge).abs().max().item()
+    raw = (ck - ce).abs()
+    raw_ok = bool((raw <= 0.05 + 0.1 * ce.abs()).all())
+    # an accuracy can change only through elements whose eager error lies
+    # within their own deviation of a threshold
+    gt = batch["actions"][:, None]
+    keep = ~batch["actions_is_pad"][:, None, :, None].expand_as(raw)
+    err = (ce - gt).abs()[keep]
+    d = raw[keep]
+    n = err.numel()
+    flip_bound = {f"acc@{t}": ((err - t).abs() <= d).sum().item() / n
+                  for t in DEFAULT_THRESHOLDS}
+    acc_dev = {k: abs(ak[k] - eg[k]) for k in flip_bound}
+    log(f"train kernels: all_kernel vs eager: decoded actions max |d| "
+        f"{act_dev:.3e} (bound {FAST_ATOL}), raw gripper {grip_dev:.3e} "
+        f"(bound {2 * FAST_ATOL}), raw outputs max |d| {raw.max().item():.3e} "
+        f"(JAX bound atol 0.05 + rtol 0.1: {'held' if raw_ok else 'broken'}); "
+        f"accuracies {'equal' if not any(acc_dev.values()) else 'differ'}: "
+        f"{acc_dev} (bound: "
+        f"errors within their deviation of the threshold, {flip_bound}), mae "
+        f"by {abs(ak['mae'] - eg['mae']):.2e} | {card}")
+    assert act_dev <= FAST_ATOL and grip_dev <= 2 * FAST_ATOL and raw_ok, \
+        (act_dev, grip_dev)
+    assert all(acc_dev[k] <= flip_bound[k] + 1e-12 for k in flip_bound), \
+        (ak, eg, flip_bound)
+    assert abs(ak["mae"] - eg["mae"]) <= raw.max().item()
+
+
+def training_phase(torch, card, dev):
+    from cover_vla_tpu_torch.configs import Pi0Config
+    cfg = Pi0Config()
+    training_small_reference(torch, dev)
+    params, batch = training_full_width(torch, card, dev, cfg)
+    training_entry_point(torch, card, dev, cfg)
+    training_kernels(torch, card, dev, cfg, params, batch)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2054,6 +2496,14 @@ def main() -> int:
     del fast_params
     checkpoint_phase(torch, card, dev, pcfg, vcfg, pp, vp)
     log(f"phase 7 checkpoints: wall {time.perf_counter() - t0:.1f} s")
+    # phase 8: training ------------------------------------------------------
+    t0 = time.perf_counter()
+    del pp, vp
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_phase(torch, card, dev)
+    log(f"phase 8 training: wall {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",

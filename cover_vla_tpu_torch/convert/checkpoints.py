@@ -10,7 +10,11 @@ reaches the port through a blob (the JAX package's ``convert/blob.py``
 memory through `convert/from_jax.py`.
 
 Replaces the reference's three checkpoint families:
-  * full train-state checkpoints (model + optimizer + scheduler + step),
+  * full train-state checkpoints (model + optimizer + scheduler + step):
+    a train state (`training/train_pi0.py`) is saved as one blob of its
+    parameters, its optimizer state (moments or int8 grids and scales,
+    counters, the accumulation buffer and its mini-step) and its step,
+    and restored into a state of the same layout in place,
   * weights-only exports,
   * rotation keeping the last K (the verifier trainer's
     manage_checkpoints).
@@ -22,6 +26,8 @@ import os
 import re
 import shutil
 from typing import Any, List, Optional
+
+import torch
 
 from cover_vla_tpu_torch.convert import blob
 from cover_vla_tpu_torch.device import resolve_device
@@ -86,11 +92,41 @@ def load_params(path: str, target: Optional[Any] = None,
                               resolve_device(device)))
 
 
+def _as_tree(state: Any):
+    """A train state (a NamedTuple of trees) as the dict it is saved as."""
+    return state._asdict() if hasattr(state, "_asdict") else state
+
+
+def _copy_into(target, tree, where: str = "") -> None:
+    """Copy every leaf of `tree` into the tensor at the same key of
+    `target`, in place (cast to the target's dtype). Both must hold the
+    same leaves with the same shapes; an empty node of `target` (an
+    optimizer part without state) has no entry in a blob."""
+    extra = [k for k in tree if k not in target]
+    if extra:
+        raise KeyError(f"checkpoint has unexpected entries under "
+                       f"{where or '/'}: {extra}")
+    for key in target:
+        value, here = target[key], f"{where}/{key}"
+        if isinstance(value, torch.Tensor):
+            if key not in tree or isinstance(tree[key], dict):
+                raise KeyError(f"checkpoint lacks the tensor {here}")
+            if tuple(tree[key].shape) != tuple(value.shape):
+                raise ValueError(f"{here}: checkpoint shape "
+                                 f"{tuple(tree[key].shape)}, state shape "
+                                 f"{tuple(value.shape)}")
+            with torch.no_grad():
+                value.copy_(tree[key])
+        else:
+            _copy_into(value, tree.get(key, {}), here)
+
+
 def save_train_state(root: str, step: int, state: Any,
                      keep_last: int = 3) -> str:
-    """Save under root/step_<N>/ and rotate old checkpoints."""
+    """Save under root/step_<N>/ and rotate old checkpoints. `state` is a
+    train state or a parameter tree."""
     path = os.path.join(os.path.abspath(root), f"step_{step:08d}")
-    save_params(path, state)
+    save_params(path, _as_tree(state))
     rotate_checkpoints(root, keep_last)
     return path
 
@@ -132,9 +168,18 @@ def cleanup_empty_runs(runs_root: str) -> int:
 def restore_train_state(root: str, target: Any,
                         device=None) -> tuple[Any, int]:
     """Resume from the latest checkpoint; returns (state, step). Without
-    a checkpoint, (target, 0)."""
+    a checkpoint, (target, 0). A train state `target` is restored in
+    place (its tensors keep their devices and requires_grad flags) and
+    continues as the saved state would have; a parameter tree is loaded
+    as a new ParamTree on `device`."""
     path = latest_checkpoint(root)
     if path is None:
         return target, 0
     step = int(os.path.basename(path).split("_")[1])
+    if hasattr(target, "_asdict"):
+        f = os.path.join(path, BLOB_NAME)
+        if not os.path.isfile(f):
+            raise FileNotFoundError(f"no {BLOB_NAME} checkpoint at {path!r}")
+        _copy_into(_as_tree(target), blob.load_tree(f))
+        return target, step
     return load_params(path, target=target, device=device), step

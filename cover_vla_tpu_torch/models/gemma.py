@@ -1,5 +1,6 @@
-"""Gemma decoder stack: prefill into a KV cache, shared-prefix decode,
-and greedy autoregressive decode (pi0-FAST).
+"""Gemma decoder stack: the fused training forward of PaliGemma and the
+action expert, prefill into a KV cache, shared-prefix decode, and greedy
+autoregressive decode (pi0-FAST).
 
 Layer weights are stacked along a leading [depth] axis, as in the
 reference package, and the layer loop is a Python loop. Decode uses a
@@ -20,6 +21,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cover_vla_tpu_torch.configs import GemmaConfig
 from cover_vla_tpu_torch.models.params import Init, ParamTree, take_layer
@@ -121,6 +123,68 @@ def _post_attention(layer: dict, cfg: GemmaConfig, h: torch.Tensor,
     gated = F.gelu(_mm(y, layer, "gate", yq, ys), approximate="tanh") \
         * _mm(y, layer, "up", yq, ys)
     return h + _mm(gated, layer, "down")
+
+
+def _unstack(layers) -> list:
+    """The [depth]-stacked layer weights as one dict of views per layer.
+    `unbind` once per leaf, so the backward pass stacks each weight's
+    layer gradients once (a `select` per layer would add a full-depth
+    gradient per layer)."""
+    names = list(layers)
+    per_leaf = [torch.unbind(layers[k]) for k in names]
+    return [dict(zip(names, views)) for views in zip(*per_leaf)]
+
+
+# ---------------------------------------------------------------------------
+# Fused training forward (both spans, no cache)
+# ---------------------------------------------------------------------------
+
+
+def fused_forward(pg_params: ParamTree, ex_params: ParamTree,
+                  pg_cfg: GemmaConfig, ex_cfg: GemmaConfig,
+                  prefix_emb: torch.Tensor, suffix_emb: torch.Tensor,
+                  positions: torch.Tensor, mask: torch.Tensor,
+                  remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run PaliGemma on the prefix span and the expert on the suffix span
+    with one masked GQA per layer over [prefix | suffix].
+
+    prefix_emb: [B, P, W_pg]; suffix_emb: [B, S, W_ex]; positions:
+    [B, P + S] RoPE positions; mask: bool[B, P + S, P + S] (True =
+    attend). Returns (prefix_out, suffix_out) after each model's final
+    RMSNorm. The attention is the eager `gqa_attention` (fp32 scores and
+    softmax): the hand kernels have no backward pass.
+
+    remat: recompute each layer pair in the backward pass
+    (`torch.utils.checkpoint`), the frozen PaliGemma span included, as
+    `jax.checkpoint` over the scanned layer body does.
+    """
+    p_len = prefix_emb.shape[1]
+    pos_p, pos_s = positions[:, :p_len], positions[:, p_len:]
+    pg_layers = _unstack(pg_params["layers"])
+    ex_layers = _unstack(ex_params["layers"])
+
+    def layer_pair(i: int, h_p: torch.Tensor, h_s: torch.Tensor):
+        lp, ls = pg_layers[i], ex_layers[i]
+        qp, kp, vp = _qkv(lp, pg_cfg, h_p, pos_p)
+        qs, ks, vs = _qkv(ls, ex_cfg, h_s, pos_s)
+        attn = gqa_attention(torch.cat([qp, qs], dim=1),
+                             torch.cat([kp, ks], dim=1),
+                             torch.cat([vp, vs], dim=1), mask)
+        h_p = _post_attention(lp, pg_cfg, h_p, attn[:, :p_len])
+        h_s = _post_attention(ls, ex_cfg, h_s, attn[:, p_len:])
+        return h_p, h_s
+
+    h_p = prefix_emb.to(_dtype(pg_params["layers"]))
+    h_s = suffix_emb.to(_dtype(ex_params["layers"]))
+    for i in range(len(pg_layers)):
+        if remat:
+            h_p, h_s = checkpoint(layer_pair, i, h_p, h_s,
+                                  use_reentrant=False)
+        else:
+            h_p, h_s = layer_pair(i, h_p, h_s)
+    return (rms_norm(h_p, pg_params["final_norm"], pg_cfg.rms_eps),
+            rms_norm(h_s, ex_params["final_norm"], ex_cfg.rms_eps))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""pi0 flow-matching VLA policy: shared prefill + Euler integration over
-N candidates.
+"""pi0 flow-matching VLA policy: the flow-matching training loss, and
+shared prefill + Euler integration over N candidates.
 
   * `sample_actions` supports a candidate axis N with a shared prefix: the
     PaliGemma prefill runs once per batch row and all N candidates decode
@@ -26,7 +26,7 @@ from cover_vla_tpu_torch.models import gemma, siglip
 from cover_vla_tpu_torch.models.params import Init, ParamTree
 from cover_vla_tpu_torch.ops.masks import make_att_2d_masks, suffix_att_masks
 from cover_vla_tpu_torch.ops.sampling import (
-    sample_noise, sinusoidal_time_embedding)
+    sample_flow_time, sample_noise, sinusoidal_time_embedding)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -131,6 +131,53 @@ def embed_suffix(params: ParamTree, cfg: Pi0Config, state: torch.Tensor,
     x = F.silu(_linear(params["time_mlp_in"], x))
     action_time_emb = _linear(params["time_mlp_out"], x)
     return torch.cat([state_emb, action_time_emb], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def flow_matching_loss(params: ParamTree, cfg: Pi0Config, images, img_masks,
+                       lang_tokens, lang_masks, state, actions,
+                       noise: Optional[torch.Tensor] = None,
+                       time: Optional[torch.Tensor] = None,
+                       remat: bool = True,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Per-element MSE losses [B, chunk, max_action_dim].
+
+    `noise` ([B, chunk, A]) and `time` ([B]) are drawn from `generator`
+    (noise first) unless given. remat: recompute the transformer layers
+    in the backward pass (`gemma.fused_forward`)."""
+    b = actions.shape[0]
+    dev = actions.device
+    if noise is None:
+        noise = sample_noise(actions.shape, generator=generator, device=dev)
+    if time is None:
+        time = sample_flow_time(b, generator=generator, device=dev)
+
+    t = time[:, None, None]
+    x_t = t * noise + (1 - t) * actions
+    u_t = noise - actions
+
+    prefix = embed_prefix(params, cfg, images, img_masks, lang_tokens,
+                          lang_masks)
+    suffix_embs = embed_suffix(params, cfg, state, x_t, time)
+    suf_att = suffix_att_masks(b, cfg.chunk_size, device=dev)
+    suf_pad = torch.ones((b, suffix_embs.shape[1]), dtype=torch.bool,
+                         device=dev)
+    pad = torch.cat([prefix.pad_masks, suf_pad], dim=1)
+    att = torch.cat([prefix.att_masks, suf_att], dim=1)
+    mask2d = make_att_2d_masks(pad, att)
+    positions = torch.cumsum(pad.to(torch.int32), dim=1) - 1
+
+    _, suffix_out = gemma.fused_forward(
+        params["paligemma"], params["expert"], cfg.paligemma, cfg.expert,
+        prefix.embs, suffix_embs, positions, mask2d, remat=remat)
+    suffix_out = suffix_out[:, -cfg.chunk_size:].float()
+    v_t = _linear(params["action_out_proj"], suffix_out)
+    return torch.square(u_t - v_t)
 
 
 # ---------------------------------------------------------------------------

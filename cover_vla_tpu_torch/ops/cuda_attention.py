@@ -12,6 +12,8 @@ twins, and launch counters.
 
 Each wrapper takes the kernel for tensors on a CUDA device and the plain
 twin for tensors on the CPU; there is no fallback from one to the other.
+No kernel has a backward pass: a wrapper raises when grad is enabled and
+an input requires grad.
 The twins compute what the kernels compute with the same rounding points:
 inputs rounded to bf16, fp32 scores and softmax, probabilities rounded to
 bf16 before the PV product, and division by the sum of the rounded
@@ -66,6 +68,16 @@ def _run(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward pass: an output computed from an input
+    that requires grad would come back silently detached. Refused on both
+    routes, so a CPU run shows what the card would do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward pass; call it under "
+            "torch.no_grad() or on inputs that do not require grad")
 
 
 def _route(name: str, device: torch.device) -> bool:
@@ -176,6 +188,7 @@ def shared_prefix_gqa(q, k_suf, v_suf, k_pre, v_pre, prefix_pad,
     inputs must be contiguous bf16 with a head dim that is a multiple of 8,
     at most 256, the masks contiguous bool, 1 <= S <= 32 and P >= 1; the
     key split comes from `decode_plan`."""
+    _refuse_autograd("shared_prefix_gqa", q, k_suf, v_suf, k_pre, v_pre)
     if not _route("shared_prefix_gqa", q.device):
         return shared_prefix_gqa_plain(q, k_suf, v_suf, k_pre, v_pre,
                                        prefix_pad, suffix_mask)
@@ -236,6 +249,7 @@ def mha_dense_plain(q, k, v) -> torch.Tensor:
 def mha_dense(q, k, v) -> torch.Tensor:
     """K2 (shapes as in `mha_dense_plain`). On CUDA the inputs must be
     contiguous bf16 with a head dim that is a multiple of 8, at most 256."""
+    _refuse_autograd("mha_dense", q, k, v)
     if not _route("mha_dense", q.device):
         return mha_dense_plain(q, k, v)
     bf = torch.bfloat16
@@ -289,6 +303,7 @@ def prefix_gqa(q, k, v, mask, out_dtype=None) -> torch.Tensor:
     """K3 (shapes as in `prefix_gqa_plain`). On CUDA q/k/v must be
     contiguous bf16 with a head dim that is a multiple of 8, at most 256,
     and mask contiguous bool; `out_dtype` is bfloat16 (None) or float32."""
+    _refuse_autograd("prefix_gqa", q, k, v)
     if not _route("prefix_gqa", q.device):
         return prefix_gqa_plain(q, k, v, mask, out_dtype)
     bf = torch.bfloat16

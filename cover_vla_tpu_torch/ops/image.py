@@ -10,6 +10,9 @@
     PIL does for 8-bit data.
   * `resize_bilinear_tf_antialias`: tf.image.resize(BILINEAR,
     antialias=True).
+  * `resize_bilinear_torch` and `resize_with_pad`: torch's bilinear
+    (align_corners=False, no antialias) and pi0's aspect-preserving
+    resize with top/left padding (the training path's image resize).
 
 The tap tables are built in numpy in float64 and applied as two separable
 fp32 products. Those products must run in true fp32: callers keep TF32
@@ -137,6 +140,21 @@ def resize_lanczos4_uint8_device(img: torch.Tensor, height: int,
 
 
 @functools.lru_cache(maxsize=64)
+def _bilinear_matrix(src: int, dst: int) -> np.ndarray:
+    """[dst, src] interpolation matrix for align_corners=False bilinear."""
+    scale = src / dst
+    coords = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    coords = np.clip(coords, 0.0, src - 1)
+    lo = np.floor(coords).astype(np.int64)
+    hi = np.minimum(lo + 1, src - 1)
+    frac = coords - lo
+    m = np.zeros((dst, src), dtype=np.float32)
+    m[np.arange(dst), lo] += (1.0 - frac).astype(np.float32)
+    m[np.arange(dst), hi] += frac.astype(np.float32)
+    return m
+
+
+@functools.lru_cache(maxsize=64)
 def _bilinear_antialias_tf_matrix(src: int, dst: int) -> np.ndarray:
     """[dst, src] matrix for tf.image.resize(BILINEAR, antialias=True):
     triangle kernel whose support scales with the downscale factor;
@@ -192,6 +210,33 @@ def resize_bicubic_pil(img: torch.Tensor, height: int, width: int,
     clip_range=None for float semantics."""
     return _separable_resize(img, height, width, _bicubic_matrix,
                              clip_range=clip_range)
+
+
+def resize_bilinear_torch(img: torch.Tensor, height: int,
+                          width: int) -> torch.Tensor:
+    """torch bilinear (align_corners=False, no antialias) resize."""
+    return _separable_resize(img, height, width, _bilinear_matrix)
+
+
+def resize_with_pad(img: torch.Tensor, height: int, width: int,
+                    pad_value: float = 0.0) -> torch.Tensor:
+    """pi0's resize_with_pad, channels-last: scale to fit inside (height,
+    width) keeping the aspect ratio with non-antialiased bilinear, then
+    pad on the TOP and LEFT with pad_value."""
+    _, cur_h, cur_w, _ = img.shape
+    ratio = max(cur_w / width, cur_h / height)
+    resized_h = int(cur_h / ratio)
+    resized_w = int(cur_w / ratio)
+    out = resize_bilinear_torch(img, resized_h, resized_w)
+    pad_h = max(0, height - resized_h)
+    pad_w = max(0, width - resized_w)
+    return torch.nn.functional.pad(out, (0, 0, pad_w, 0, pad_h, 0),
+                                   value=pad_value)
+
+
+def to_siglip_range(img_uint8: torch.Tensor) -> torch.Tensor:
+    """uint8 [0,255] -> float [-1, 1] (SigLIP input convention)."""
+    return img_uint8.float() / 127.5 - 1.0
 
 
 def patchify(img: torch.Tensor, patch: int) -> torch.Tensor:

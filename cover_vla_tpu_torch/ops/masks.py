@@ -22,6 +22,13 @@ def make_att_2d_masks(pad_masks: torch.Tensor,
     return att_2d & pad_2d
 
 
+def prefix_att_masks(batch: int, num_img_tokens: int, num_lang_tokens: int,
+                     device: torch.device | str = "cpu") -> torch.Tensor:
+    """att_masks for the pi0 prefix: all-bidirectional (zeros)."""
+    return torch.zeros((batch, num_img_tokens + num_lang_tokens),
+                       dtype=torch.int32, device=device)
+
+
 def suffix_att_masks(batch: int, chunk_size: int,
                      device: torch.device | str = "cpu") -> torch.Tensor:
     """att_masks for the pi0 suffix: [1] state + [1, 0...] actions. The

@@ -21,6 +21,25 @@ def sinusoidal_time_embedding(time: torch.Tensor, dimension: int,
     return torch.cat([torch.sin(sin_input), torch.cos(sin_input)], dim=1)
 
 
+def sample_beta(alpha: float, beta: float, bsize: int, *,
+                generator: torch.Generator | None = None,
+                device: torch.device | str) -> torch.Tensor:
+    """Beta(alpha, beta) samples via u1^(1/a) / (u1^(1/a) + u2^(1/b)),
+    the two uniforms drawn from `generator` in that order."""
+    u1 = torch.rand((bsize,), generator=generator, device=device)
+    u2 = torch.rand((bsize,), generator=generator, device=device)
+    g1 = u1 ** (1.0 / alpha)
+    g2 = u2 ** (1.0 / beta)
+    return g1 / (g1 + g2)
+
+
+def sample_flow_time(bsize: int, *, generator: torch.Generator | None = None,
+                     device: torch.device | str) -> torch.Tensor:
+    """pi0 training time distribution: Beta(1.5, 1) * 0.999 + 0.001."""
+    return sample_beta(1.5, 1.0, bsize, generator=generator,
+                       device=device) * 0.999 + 0.001
+
+
 def sample_noise(shape, noise_std: float = 1.0, *,
                  generator: torch.Generator | None = None,
                  device: torch.device | str) -> torch.Tensor:

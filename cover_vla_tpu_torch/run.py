@@ -1,25 +1,31 @@
 """Unified CLI entry point of the PyTorch port.
 
 Roles ported so far:
+  train            — pi0 finetuning on a trajectory dataset (npz dir)
   serve_policy     — websocket policy server (pi0 or CoVer engine)
   eval             — closed-loop CoVer evaluation on a benchmark suite
 
-The JAX package's `train`, `train_pi0fast`, `train_verifier` and `bench`
-roles are not ported yet: `main` stops on them with SystemExit. The
-config classes are the JAX package's, field for field and default for
-default, so every YAML of `config/` parses the same in both packages.
+The JAX package's `train_pi0fast`, `train_verifier` and `bench` roles are
+not ported yet: `main` stops on them with SystemExit, as it does on
+`--train.data_format rlds` and on a multi-process launch. The config
+classes are the JAX package's, field for field and default for default,
+so every YAML of `config/` parses the same in both packages.
 
-Usage: python -m cover_vla_tpu_torch.run --role serve_policy \
-       --serve.mode cover --serve.checkpoint <pi0 checkpoint>
+Usage: python -m cover_vla_tpu_torch.run --role train \
+       --train.dataset_dir <dir of .npz trajectories> --train.batch_size 32
 
-Everything runs on the first CUDA device; `build_server` and `role_eval`
-take `device=` for callers that want another (the tests pass "cpu").
+Everything runs on the first CUDA device unless `--device` (or
+`main(argv, device=)`) names another; `role_train`, `build_server` and
+`role_eval` take `device=` too (the tests pass "cpu").
 """
 
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -116,6 +122,148 @@ class RunCfg:
 _QUANTIZE_MODES = ("none", "int8", "int8_full")
 
 
+def _load_trajectories(dataset_dir: str):
+    """Each .npz holds one trajectory: images/states/actions (+task str)."""
+    trajs = []
+    for fn in sorted(os.listdir(dataset_dir)):
+        if fn.endswith(".npz"):
+            z = np.load(os.path.join(dataset_dir, fn), allow_pickle=True)
+            trajs.append({
+                "images": z["images"], "states": z["states"],
+                "actions": z["actions"],
+                "task": str(z["task"]) if "task" in z else "",
+            })
+    if not trajs:
+        raise FileNotFoundError(f"no .npz trajectories in {dataset_dir}")
+    return trajs
+
+
+def role_train(cfg: RunCfg, device=None):
+    """pi0 finetuning: expert-only (the partitioned state) or the whole
+    tree, AdamW or 8-bit AdamW under warmup-cosine, optional validation,
+    train-state checkpoints under <checkpoint_dir>/step_<N>/ and a resume
+    from the latest one. Metrics go to <checkpoint_dir>/metrics.jsonl
+    every 10 steps, as the JAX role logs them at one process."""
+    import torch
+    from cover_vla_tpu_torch.configs import Pi0Config, tiny_pi0_config
+    from cover_vla_tpu_torch.convert import checkpoints
+    from cover_vla_tpu_torch.data.pipeline import (
+        FrameDataset, ParaphraseAugment, batcher, interleave, make_pi0_batch,
+        prefetch)
+    from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
+    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.training import train_pi0
+    from cover_vla_tpu_torch.training.optim import warmup_cosine
+    from cover_vla_tpu_torch.training.validation import validate_pi0
+    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
+    from cover_vla_tpu_torch.utils.monitor import Timer, setup_logger
+
+    t = cfg.train
+    if t.data_format == "rlds":
+        raise SystemExit("--train.data_format rlds is not ported yet "
+                         "(ROADMAP A.3 f); use npz trajectories")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit("multi-process training is not ported yet "
+                         "(ROADMAP A.4); launch one process")
+    dev = resolve_device(device)
+    log = setup_logger("train")
+    mcfg = tiny_pi0_config() if t.tiny else Pi0Config()
+    tok = make_policy_tokenizer(mcfg.paligemma.vocab_size)
+
+    paraphrase = None
+    if t.paraphrase_json:
+        from cover_vla_tpu_torch.eval.rephrase import load_rephrases
+        paraphrase = ParaphraseAugment(load_rephrases(t.paraphrase_json),
+                                       prob=t.paraphrase_prob)
+    ds = FrameDataset(_load_trajectories(t.dataset_dir),
+                      chunk_size=mcfg.chunk_size, paraphrase=paraphrase)
+
+    s = mcfg.vision.image_size
+    if t.augment:
+        # random_resized_crop + color jitter on the device, raw uint8 in
+        from cover_vla_tpu_torch.data.augment import augment_frame
+
+        def image_fn(gen, imgs):
+            return augment_frame(gen, imgs, (s, s))
+    else:
+        from cover_vla_tpu_torch.ops.image import resize_bilinear_torch
+
+        def image_fn(gen, imgs):
+            x = imgs.float() / 255.0 * 2.0 - 1.0
+            if tuple(imgs.shape[1:3]) != (s, s):
+                x = resize_bilinear_torch(x, s, s)
+            return x
+
+    def device_batch(frame_batch, gen):
+        batch = make_pi0_batch(frame_batch, tok, mcfg)
+        out = {k: torch.from_numpy(np.asarray(v)).to(dev)
+               for k, v in batch.items() if k != "images"}
+        imgs = torch.from_numpy(np.asarray(frame_batch["image"])).to(dev)
+        out["images"] = image_fn(gen, imgs)[:, None]
+        return out
+
+    def generator(seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    sinks = make_sinks(
+        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
+                                                   "metrics.jsonl"),
+        wandb_project=t.wandb_project or None)
+    tx = train_pi0.make_optimizer(
+        warmup_cosine(t.lr, t.warmup_steps, t.num_steps),
+        optimizer=t.optimizer, accumulate_steps=t.grad_accum)
+    if t.train_expert_only:
+        # no gradient buffers or moments for the frozen weights
+        state, mask = train_pi0.init_partitioned_train_state(
+            t.seed, mcfg, tx, device=dev)
+        step_fn = train_pi0.make_partitioned_train_step(mcfg, tx, mask)
+    else:
+        state = train_pi0.init_train_state(t.seed, mcfg, tx, device=dev)
+        step_fn = train_pi0.make_train_step(mcfg, tx)
+    start = 0
+    if t.resume:
+        state, start = checkpoints.restore_train_state(t.checkpoint_dir,
+                                                       state)
+        log.info("resumed from step %d", start)
+
+    timer = Timer()
+    frames = prefetch(batcher(interleave([ds], seed=t.seed,
+                                         shuffle_buffer=t.shuffle_buffer),
+                              t.batch_size))
+    val_set = []
+    if t.val_every:
+        # a held-out stream of batches; each validation rolls all of them
+        for vb in range(max(1, t.val_batches)):
+            val_set.append(device_batch(next(frames),
+                                        generator(t.seed - 1 - vb)))
+    for i, frame_batch in enumerate(frames):
+        if start + i >= t.num_steps:
+            break
+        # one generator a step: the batch's augmentation draws, then the
+        # step's noise and flow times
+        gen = generator(t.seed + start + i)
+        state, metrics = step_fn(state, gen, device_batch(frame_batch, gen))
+        if (start + i) % 10 == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            sinks.log(m, step=start + i)
+            log.info("step %d loss %.4f (%.2fs)", start + i, m["loss"],
+                     timer.elapsed())
+        if t.val_every and (start + i + 1) % t.val_every == 0:
+            vms = [validate_pi0(state.params, mcfg, vb, seed=vi)
+                   for vi, vb in enumerate(val_set)]
+            val = {k: float(np.mean([m[k] for m in vms])) for k in vms[0]}
+            sinks.log({f"val/{k}": v for k, v in val.items()},
+                      step=start + i + 1)
+            log.info("step %d val %s", start + i + 1, val)
+        if (start + i + 1) % t.save_every == 0:
+            checkpoints.save_train_state(t.checkpoint_dir, start + i + 1,
+                                         state, keep_last=t.keep_last)
+    checkpoints.save_train_state(t.checkpoint_dir, t.num_steps, state,
+                                 keep_last=t.keep_last)
+    sinks.close()
+    log.info("done")
+
+
 def build_server(cfg: RunCfg, device=None):
     """The websocket server of `--role serve_policy`, not yet serving."""
     from cover_vla_tpu_torch.configs import Pi0Config, tiny_pi0_config
@@ -164,8 +312,8 @@ def build_server(cfg: RunCfg, device=None):
                                  metadata={"model": s.mode})
 
 
-def role_serve(cfg: RunCfg):
-    server = build_server(cfg)
+def role_serve(cfg: RunCfg, device=None):
+    server = build_server(cfg, device=device)
     s = cfg.serve
     print(f"serving {s.mode} on ws://{s.host}:{s.port}")
     server.serve_forever()
@@ -248,24 +396,36 @@ def role_eval(cfg: RunCfg, device=None):
 
 
 # the JAX package's roles this port does not have yet, and where they wait
-_NOT_PORTED = {"train": "A.3", "train_pi0fast": "A.3",
-               "train_verifier": "A.3", "bench": "A.6"}
+_NOT_PORTED = {"train_pi0fast": "A.3 e", "train_verifier": "A.3 c",
+               "bench": "A.6"}
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """Parse `argv` and run its role on `device` (CUDA unless given).
+    `--device <name>` in `argv` names the device too; it is no field of
+    the configs, which stay the JAX package's."""
+    import sys
     from cover_vla_tpu_torch.utils.cli import parse
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            raise SystemExit("--device needs a value (cuda, cuda:1, cpu)")
+        device = argv[i + 1]
+        del argv[i:i + 2]
     cfg = parse(RunCfg, argv)
     if cfg.role in _NOT_PORTED:
         raise SystemExit(
             f"role {cfg.role!r} is not ported to the PyTorch port yet "
-            f"(ROADMAP {_NOT_PORTED[cfg.role]}); ported roles: serve_policy, "
-            "eval")
-    role = {"serve_policy": role_serve, "eval": role_eval}.get(cfg.role)
+            f"(ROADMAP {_NOT_PORTED[cfg.role]}); ported roles: train, "
+            "serve_policy, eval")
+    role = {"train": role_train, "serve_policy": role_serve,
+            "eval": role_eval}.get(cfg.role)
     if role is None:
         raise SystemExit(
             f"unknown role {cfg.role!r} "
             f"(train|train_pi0fast|train_verifier|serve_policy|eval|bench)")
-    role(cfg)
+    role(cfg, device=device)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,198 @@
+"""pi0 finetuning on one device: freeze masks, the optimizers, the flow
+matching loss, and the train steps over a full or a partitioned state.
+
+The counterpart of INT-ACT's BaseTrainer: bf16 weights with the
+optimizer's moments in each leaf's dtype (AdamW) or int8 (AdamW 8-bit),
+gradient accumulation, cosine-warmup AdamW, frozen parameter masks
+(freeze the vision encoder / train the expert only). A step updates its
+state's tensors in place and returns the state with its new optimizer
+state and step count; the trainable leaves carry requires_grad=True and
+the frozen ones get no gradient buffer (the partitioned state: no
+moments either). Sharding over several devices waits for ROADMAP A.4:
+every `mesh=` argument and `shard_batch` raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+
+import torch
+
+from cover_vla_tpu_torch.configs import Pi0Config
+from cover_vla_tpu_torch.device import resolve_device
+from cover_vla_tpu_torch.models import pi0
+from cover_vla_tpu_torch.models.params import ParamTree
+from cover_vla_tpu_torch.training import optim
+from cover_vla_tpu_torch.utils.tree import flatten
+
+
+class TrainState(NamedTuple):
+    params: ParamTree
+    opt_state: dict
+    step: torch.Tensor      # 0-d int32, on the CPU
+
+
+class PartitionedTrainState(NamedTuple):
+    """The full parameter tree with an optimizer state over ONLY the
+    trainable leaves: frozen weights get no gradient buffers and no
+    moments."""
+    params: ParamTree
+    opt_state: dict
+    step: torch.Tensor
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training (mesh=) is not ported yet (ROADMAP A.4)")
+
+
+def freeze_mask(params, train_expert_only: bool = True,
+                freeze_vision: bool = True,
+                train_state_proj: bool = True) -> dict:
+    """A tree of bools mirroring `params`, True = trainable (the pi0
+    freeze flags)."""
+    def rule(top: str) -> bool:
+        if top == "vision" and (freeze_vision or train_expert_only):
+            return False
+        if top in ("paligemma", "mm_proj") and train_expert_only:
+            return False
+        if top == "state_proj":
+            return train_state_proj
+        return True
+
+    def fill(tree, value):
+        return {k: fill(tree[k], value)
+                if isinstance(tree[k], (Mapping, ParamTree)) else value
+                for k in tree}
+
+    return {k: fill(params[k], rule(k))
+            if isinstance(params[k], (Mapping, ParamTree)) else rule(k)
+            for k in params}
+
+
+def make_optimizer(lr_schedule, mask=None, optimizer: str = "adamw",
+                   accumulate_steps: int = 1,
+                   **kw) -> optim.GradientTransformation:
+    """optimizer: "adamw" | "adamw_8bit" (block-quantised moments, the
+    bnb AdamW8bit counterpart). With `mask` (a `freeze_mask` tree),
+    frozen leaves get zero updates."""
+    if optimizer == "adamw_8bit":
+        from cover_vla_tpu_torch.training.quantized_optim import adamw_8bit
+        tx = optim.chain(optim.clip_by_global_norm(kw.pop("grad_clip", 1.0)),
+                         adamw_8bit(lr_schedule, **kw))
+        if accumulate_steps > 1:
+            tx = optim.multi_steps(tx, accumulate_steps)
+    elif optimizer == "adamw":
+        tx = optim.make_adamw(lr_schedule, accumulate_steps=accumulate_steps,
+                              **kw)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    if mask is not None:
+        tx = optim.masked(tx, flatten(mask))
+    return tx
+
+
+def loss_fn(params, cfg: Pi0Config, generator: Optional[torch.Generator],
+            batch: Dict[str, torch.Tensor], noise=None, time=None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """batch: images [B,n,H,W,3], img_masks [B,n], lang_tokens [B,T],
+    lang_masks [B,T], state [B,32], actions [B,chunk,32], optional
+    actions_is_pad bool[B, chunk] (padded steps count as zero loss in the
+    mean over every element)."""
+    losses = pi0.flow_matching_loss(
+        params, cfg, batch["images"], batch["img_masks"],
+        batch["lang_tokens"], batch["lang_masks"], batch["state"],
+        batch["actions"], noise=noise, time=time, generator=generator)
+    if "actions_is_pad" in batch:
+        losses = losses * (~batch["actions_is_pad"].bool())[..., None]
+    loss = losses.mean()
+    return loss, {"loss": loss}
+
+
+def _step(state, tx, cfg: Pi0Config, names, generator, batch, noise, time):
+    leaves = flatten(state.params)
+    train = {k: leaves[k].requires_grad_(True) for k in names}
+    with torch.enable_grad():
+        loss, _ = loss_fn(state.params, cfg, generator, batch, noise, time)
+        grads = torch.autograd.grad(loss, list(train.values()),
+                                    allow_unused=True)
+    # a leaf the loss does not reach (PaliGemma's final norm) gets zeros
+    grads = {k: torch.zeros_like(train[k]) if g is None else g
+             for k, g in zip(train, grads)}
+    with torch.no_grad():
+        metrics = {"loss": loss.detach(),
+                   "grad_norm": optim.global_norm(grads)}
+        updates, opt_state = tx.update(grads, state.opt_state, train)
+        optim.apply_updates(train, updates)
+    return type(state)(state.params, opt_state, state.step + 1), metrics
+
+
+def make_partitioned_train_step(cfg: Pi0Config,
+                                tx: optim.GradientTransformation, mask):
+    """Train step differentiating only the mask=True leaves; `tx` is a
+    plain optimizer over those leaves (no freeze wrapper needed).
+
+    step(state, generator, batch, noise=None, time=None) -> (state,
+    {"loss", "grad_norm"}), grad_norm before clipping. noise and time are
+    drawn from `generator` unless given."""
+    names = [k for k, m in flatten(mask).items() if m]
+
+    def train_step(state: PartitionedTrainState, generator, batch,
+                   noise=None, time=None):
+        return _step(state, tx, cfg, names, generator, batch, noise, time)
+
+    return train_step
+
+
+def _train_leaves(params, mask) -> Dict[str, torch.Tensor]:
+    m = flatten(mask)
+    return {k: p.requires_grad_(True) for k, p in flatten(params).items()
+            if m[k]}
+
+
+def init_partitioned_state(params, tx, mask) -> PartitionedTrainState:
+    return PartitionedTrainState(params, tx.init(_train_leaves(params, mask)),
+                                 optim.counter())
+
+
+def init_partitioned_train_state(seed: int, cfg: Pi0Config, tx, mask=None,
+                                 mesh=None, device=None
+                                 ) -> Tuple[PartitionedTrainState, dict]:
+    """A random pi0 on `device` (CUDA unless given) with the optimizer
+    state over its trainable leaves (expert only by default); returns
+    (state, mask)."""
+    _no_mesh(mesh)
+    params = pi0.init_pi0(seed, cfg, device=resolve_device(device))
+    if mask is None:
+        mask = freeze_mask(params, train_expert_only=True)
+    return init_partitioned_state(params, tx, mask), mask
+
+
+def make_train_step(cfg: Pi0Config, tx: optim.GradientTransformation,
+                    mesh=None):
+    """Train step over every leaf (a freeze is `make_optimizer`'s mask);
+    the same call as `make_partitioned_train_step`'s."""
+    _no_mesh(mesh)
+
+    def train_step(state: TrainState, generator, batch, noise=None,
+                   time=None):
+        return _step(state, tx, cfg, list(flatten(state.params)), generator,
+                     batch, noise, time)
+
+    return train_step
+
+
+def init_train_state(seed: int, cfg: Pi0Config, tx, mesh=None,
+                     device=None) -> TrainState:
+    """A random pi0 on `device` (CUDA unless given), every leaf
+    trainable, and its optimizer state."""
+    _no_mesh(mesh)
+    params = pi0.init_pi0(seed, cfg, device=resolve_device(device))
+    leaves = {k: p.requires_grad_(True) for k, p in flatten(params).items()}
+    return TrainState(params, tx.init(leaves), optim.counter())
+
+
+def shard_batch(batch, mesh):
+    raise NotImplementedError(
+        "sharded batches are not ported yet (ROADMAP A.4)")

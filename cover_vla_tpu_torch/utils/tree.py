@@ -3,7 +3,7 @@ tensors)."""
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Any, Dict, Iterator, Mapping
 
 import torch
 
@@ -16,6 +16,33 @@ def _leaves(tree) -> Iterator[torch.Tensor]:
             yield value
         else:
             yield from _leaves(value)
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """{"a.b.c": leaf} of a tree of nested dicts / `ParamTree`s, in the
+    JAX package's leaf order (keys sorted at every level, as
+    jax.tree_util flattens dicts)."""
+    out = {}
+    for key in sorted(tree):
+        value = tree[key]
+        name = f"{prefix}{key}"
+        if isinstance(value, (Mapping, ParamTree)):
+            out.update(flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def unflatten(leaves: Dict[str, torch.Tensor]) -> dict:
+    """The nested dict of a `flatten` result."""
+    root: dict = {}
+    for name, leaf in leaves.items():
+        *path, last = name.split(".")
+        d = root
+        for k in path:
+            d = d.setdefault(k, {})
+        d[last] = leaf
+    return root
 
 
 def count_params(params) -> int:

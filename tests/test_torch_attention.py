@@ -258,6 +258,42 @@ def _check_prefix_twin(q, k, v, mask, qpad):
     torch.testing.assert_close(out32, twin, atol=0, rtol=0)
 
 
+def _autograd_cases():
+    """Each wrapper with small CPU inputs (bf16, as the kernels take)."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(torch.bfloat16)
+
+    b, n, s, hq, hkv, d, p = 1, 2, 3, 4, 1, 16, 5
+    k1 = dict(q=r(b, n, s, hq, d), k_suf=r(b, n, s, hkv, d),
+              v_suf=r(b, n, s, hkv, d), k_pre=r(b, p, hkv, d),
+              v_pre=r(b, p, hkv, d),
+              prefix_pad=torch.ones((b, p), dtype=torch.bool),
+              suffix_mask=torch.ones((b, s, s), dtype=torch.bool))
+    k2 = dict(q=r(2, 7, 2, 16), k=r(2, 7, 2, 16), v=r(2, 7, 2, 16))
+    k3 = dict(q=r(2, 6, 4, 16), k=r(2, 6, 1, 16), v=r(2, 6, 1, 16),
+              mask=torch.ones((2, 6, 6), dtype=torch.bool))
+    return {"shared_prefix_gqa": k1, "mha_dense": k2, "prefix_gqa": k3}
+
+
+@pytest.mark.parametrize("name", ["shared_prefix_gqa", "mha_dense",
+                                  "prefix_gqa"])
+def test_kernel_wrappers_refuse_autograd(name):
+    """No kernel has a backward pass: with grad enabled and an input that
+    requires grad the wrapper raises (on the CPU route too) instead of
+    returning a silently detached output; under no_grad, or with no input
+    requiring grad, it runs."""
+    fn = getattr(cuda_attention, name)
+    args = _autograd_cases()[name]
+    plain = fn(**args)
+    args["q"] = args["q"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fn(**args)
+    with torch.no_grad():
+        assert torch.equal(fn(**args), plain)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax():
                  "convert.pi0fast_from_torch", "convert.verifier_from_torch",
                  "convert.verifier_to_torch", "utils", "utils.cli",
                  "utils.geometry", "utils.metrics_sink", "utils.monitor",
-                 "utils.tree", "run"):
+                 "utils.tree", "run", "training", "training.optim",
+                 "training.quantized_optim", "training.train_pi0",
+                 "training.validation", "data.pipeline", "data.augment"):
         assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
             "for m in ('jax', 'cover_vla_tpu', 'safetensors', 'ml_dtypes',\n"

@@ -78,7 +78,7 @@ def test_cli_rejects_unknown():
             parse_fn(cls, ["--nonexistent.option", "3"])
 
 
-@pytest.mark.parametrize("role", ["train", "train_pi0fast", "train_verifier",
+@pytest.mark.parametrize("role", ["train_pi0fast", "train_verifier",
                                   "bench"])
 def test_unported_roles_stop(role):
     with pytest.raises(SystemExit, match="not ported"):
