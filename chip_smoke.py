@@ -72,6 +72,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      metrics.jsonl keys, the files deleted); validate_pi0 on the trained
      weights under the all-kernel config (launches 180/27/18 a call) and
      the eager one (chunks within 1e-2, the same accuracies).
+  9. verifier and π0-FAST training: the tiny verifier (fp32, 3 members)
+     through 3 ensemble steps and one step of each ranking objective, and
+     the tiny π0-FAST's token_ce_loss with its gradient norm, card vs CPU;
+     the frozen-backbone ensemble step at full width (SigLIP2 ViT-L/16-384
+     and text towers, 3 members, B = 32) under the eager and the kernel
+     config in turns (step times, card peak, device-busy share, trainable
+     count, K2 48 launches a step; features, metrics and members kernel vs
+     eager; the backbone bit-equal); validation metrics and the retrieval
+     harness (32 probes, pool 20) eager vs kernel; the whole verifier
+     trained (refused under the kernel config) and the ranking, listwise
+     and regression steps; run.main --role train_verifier over a written
+     bridge JSON with best/, the merged ensemble and a resume; π0-FAST
+     (PaliGemma-2B + so400m, the whole tree, B = 8) under AdamW and 8-bit
+     AdamW; run.main --role train_pi0fast over a raw-image RLDS shard with
+     a resume, the restored states bit-equal.
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -2423,6 +2438,788 @@ def training_phase(torch, card, dev):
     training_kernels(torch, card, dev, cfg, params, batch)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: verifier and π0-FAST training
+# ---------------------------------------------------------------------------
+
+# Tiny card vs CPU (fp32 weights, TF32 off): losses within 1e-6 of
+# themselves, the π0-FAST gradient norm within 1e-6 too; the members after
+# each ensemble step within 1e-4 (10% of lr) and within 1e-5 in all but
+# VTRAIN_SHARE of their elements, outside the attention key biases, which
+# are held to one lr. A softmax is invariant to a key bias, so its
+# gradient is rounding noise that Adam scales to a fraction of lr on both
+# devices; an element whose gradient is near Adam's eps (1e-8) steps by
+# g / (|g| + eps) of lr, which a 1e-9 difference in g moves (8 of the
+# heads' 41,814 other elements beyond 1e-5 after the first step, the
+# largest 2.9e-5, on the H100).
+VTRAIN_REL = 1e-6
+VTRAIN_SHARE = 1e-3
+# kernel vs eager features: the JAX package's fast-vs-exact bound
+FEAT_ATOL, FEAT_RTOL = 0.05, 0.1
+
+
+def verifier_k2(vcfg) -> int:
+    """K2's launches in one frozen-backbone verifier step or one retrieval
+    probe: one per layer of the two towers (48 at full width)."""
+    return vcfg.vision.depth + vcfg.text.depth
+
+
+def verifier_batch(np_rng, vcfg, b):
+    """Images in [-1, 1] at the tower's size, a full row of text tokens,
+    action histories of 4-10 steps top-padded with the -5 fill."""
+    s, t = vcfg.vision.image_size, vcfg.text.context_length
+    hist = np_rng.uniform(-1, 1, (b, vcfg.history_length, vcfg.action_dim)
+                          ).astype(np.float32)
+    for i, n in enumerate(np_rng.integers(4, vcfg.history_length + 1, b)):
+        hist[i, :vcfg.history_length - n] = vcfg.action_padding_value
+    return {"images": np_rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+            "text_tokens": np_rng.integers(1, min(1000, vcfg.text.vocab_size),
+                                           (b, t)).astype(np.int32),
+            "action_histories": hist}
+
+
+def candidate_batch(np_rng, vcfg, b, n):
+    """The ranking objectives' batch: N candidates per state (pos_traj
+    and N - 1 neg_trajs for the ranking loss, cand_trajs and qualities
+    for the listwise and regression losses)."""
+    batch = verifier_batch(np_rng, vcfg, b)
+    shape = (b, n, vcfg.history_length, vcfg.action_dim)
+    cands = np_rng.uniform(-1, 1, shape).astype(np.float32)
+    batch.update(pos_traj=batch.pop("action_histories"),
+                 neg_trajs=cands[:, 1:], cand_trajs=cands,
+                 qualities=np_rng.uniform(0, 1, (b, n)).astype(np.float32))
+    return batch
+
+
+def fast_batch(np_rng, cfg, b, hw=None):
+    """A π0-FAST batch through make_fast_batch: uint8 frames, 7-dim states
+    and action chunks from a seed, the hash tokenizer's prompts, padded to
+    max_input_seq_len tokens."""
+    from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
+    from cover_vla_tpu_torch.training.train_pi0fast import make_fast_batch
+    hw = hw or cfg.vision.image_size
+    frames = {"image": np_rng.integers(0, 256, (b, hw, hw, 3), dtype=np.uint8),
+              "state": np_rng.uniform(-1, 1, (b, 7)).astype(np.float32),
+              "actions": np_rng.uniform(-1, 1, (b, cfg.chunk_size, 7)
+                                        ).astype(np.float32),
+              "task": ["put the carrot on the plate"] * b}
+    return make_fast_batch(frames, make_policy_tokenizer(
+        cfg.paligemma.vocab_size), cfg)
+
+
+def member_divergence(torch, got, want, lr):
+    """(share beyond TRAIN_PARAM_ATOL and largest difference outside the
+    attention key biases, largest key-bias difference, within the
+    bounds) of two flat trees."""
+    diff = {k: (got[k].float().cpu() - want[k].float().cpu()).abs().reshape(-1)
+            for k in want}
+    kb = [k for k in diff if k.endswith("attn.k.bias")]
+    rest = torch.cat([d for k, d in diff.items() if k not in kb])
+    key_bias = max((diff[k].max().item() for k in kb), default=0.0)
+    share = (rest > TRAIN_PARAM_ATOL).float().mean().item()
+    ok = share <= VTRAIN_SHARE and rest.max().item() <= 1e-4 and key_bias <= lr
+    return share, rest.max().item(), key_bias, ok
+
+
+def fresh_tree(torch, base, dev):
+    """A copy of a tree on `dev` that shares no storage with `base`."""
+    from cover_vla_tpu_torch.models.params import ParamTree
+    from cover_vla_tpu_torch.utils.tree import flatten, unflatten
+    return ParamTree(unflatten({k: v.detach().clone().to(dev)
+                                for k, v in flatten(base).items()}))
+
+
+def vtrain_small_reference(torch, dev):
+    """9.1: the tiny verifier (fp32, 3 members) through 3 ensemble AdamW
+    steps, one step each of the ranking, listwise and regression
+    objectives, and the tiny π0-FAST's token_ce_loss with its gradient
+    norm, on the card and on the CPU from the same trees and batches."""
+    from cover_vla_tpu_torch.configs import tiny_verifier_config
+    from cover_vla_tpu_torch.models import pi0fast, verifier
+    from cover_vla_tpu_torch.training import optim
+    from cover_vla_tpu_torch.training import train_verifier as tv
+    from cover_vla_tpu_torch.utils.tree import cast_tree, flatten
+
+    vcfg, lr = tiny_verifier_config(), 1e-3
+    base = cast_tree(verifier.init_verifier(0, vcfg, 3, device="cpu"),
+                     torch.float32)
+    rng = np.random.default_rng(91)
+    batch, cands = verifier_batch(rng, vcfg, 6), candidate_batch(rng, vcfg,
+                                                                 4, 5)
+    runs = {}
+    for d in ("cpu", dev):
+        tree = fresh_tree(torch, base, d)
+        members = tree["members"]
+        tx = optim.make_adamw(optim.linear_warmup(lr, 0))
+        state = tv.VerifierTrainState(
+            members, tx.init({k: v.requires_grad_(True) for k, v in
+                              flatten(members).items()}), optim.counter())
+        step = tv.make_ensemble_train_step(vcfg, tx)
+        out = []
+        for _ in range(3):
+            state, m = step(state, tree["backbone"], to_device(torch, batch, d))
+            out.append((m["loss"].item(), m["grad_norm"].item(),
+                        {k: v.detach().to("cpu", copy=True)
+                         for k, v in flatten(state.members).items()}))
+        objectives = {}
+        for name, make in (("ranking", tv.make_ranking_train_step),
+                           ("listwise", tv.make_listwise_train_step),
+                           ("regression", tv.make_regression_train_step)):
+            full = fresh_tree(torch, base, d)
+            ftx = optim.make_adamw(optim.linear_warmup(lr, 0))
+            fstate = tv.FullVerifierTrainState(
+                full, ftx.init({k: v.requires_grad_(True) for k, v in
+                                flatten(full).items()}), optim.counter())
+            _, fm = make(vcfg, ftx)(fstate, to_device(torch, cands, d))
+            objectives[name] = fm["loss"].item()
+        runs[str(d)] = (out, objectives)
+    (c_out, c_obj), (g_out, g_obj) = runs["cpu"], runs[str(dev)]
+    for i, (c, g) in enumerate(zip(c_out, g_out)):
+        d_loss = abs(g[0] - c[0]) / abs(c[0])
+        d_norm = abs(g[1] - c[1]) / abs(c[1])
+        share, worst, key_bias, ok = member_divergence(torch, g[2], c[2], lr)
+        log(f"verifier train small reference: ensemble step {i + 1}: loss "
+            f"card {g[0]:.7f} cpu {c[0]:.7f} (rel {d_loss:.2e}), grad_norm "
+            f"rel {d_norm:.2e}; members beyond {TRAIN_PARAM_ATOL:g} outside "
+            f"the key biases {share:.2e} (largest {worst:.2e}), key biases "
+            f"largest {key_bias:.2e}")
+        assert d_loss <= VTRAIN_REL and ok, (i, d_loss, share, worst, key_bias)
+        assert d_norm <= 1e-4, (i, d_norm)
+    for name in c_obj:
+        rel = abs(g_obj[name] - c_obj[name]) / abs(c_obj[name])
+        log(f"verifier train small reference: {name} step loss card "
+            f"{g_obj[name]:.7f} cpu {c_obj[name]:.7f} (rel {rel:.2e})")
+        assert rel <= VTRAIN_REL, (name, rel)
+
+    fcfg = pi0fast.tiny_pi0fast_config()
+    fbase = cast_tree(pi0fast.init_pi0fast(0, fcfg, device="cpu"),
+                      torch.float32)
+    fbatch = fast_batch(np.random.default_rng(92), fcfg, 3)
+    got = {}
+    for d in ("cpu", dev):
+        tree = fresh_tree(torch, fbase, d)
+        leaves = {k: v.requires_grad_(True) for k, v in flatten(tree).items()}
+        b = to_device(torch, fbatch, d)
+        loss = pi0fast.token_ce_loss(tree, fcfg, b["images"], b["img_masks"],
+                                     b["tokens"], b["pad_mask"],
+                                     b["suffix_mask"])
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        got[str(d)] = (loss.item(), optim.global_norm(
+            {k: g for k, g in zip(leaves, grads) if g is not None}).item())
+    (cl, cn), (gl, gn) = got["cpu"], got[str(dev)]
+    d_loss, d_norm = abs(gl - cl) / abs(cl), abs(gn - cn) / abs(cn)
+    log(f"π0-FAST small reference: token_ce_loss card {gl:.7f} cpu {cl:.7f} "
+        f"(rel {d_loss:.2e}), gradient norm card {gn:.6f} cpu {cn:.6f} (rel "
+        f"{d_norm:.2e})")
+    assert d_loss <= VTRAIN_REL and d_norm <= VTRAIN_REL, (d_loss, d_norm)
+
+
+def verifier_trainable_reckoning(vcfg, members: int) -> int:
+    """The trainable heads of `members` members, from the config."""
+    linear = lambda i, o: i * o + o
+    d = vcfg.vision_pooling_output_dim
+
+    def pooling(kv, out):
+        inter = out // vcfg.num_readouts
+        layer = (2 * inter + 2 * linear(inter, inter) + 2 * linear(kv, inter)
+                 + 2 * inter + linear(inter, out) + linear(out, inter))
+        return (vcfg.num_readouts * inter + vcfg.pooling_layers * layer
+                + 2 * inter)
+
+    traj = vcfg.traj_layers * (4 * linear(d, d) + 4 * d + linear(d, 2 * d)
+                               + linear(2 * d, d))
+    one = (2 + pooling(vcfg.text.embed_dim, vcfg.text_pooling_output_dim)
+           + pooling(vcfg.vision.width, d) + linear(vcfg.fused_dim, d)
+           + linear(vcfg.action_dim, d) + traj)
+    return members * one
+
+
+def verifier_logits(torch, vcfg, members, feats, action_histories):
+    """Each member's training logits [M, B, B] (exp(logit_scale) it.ac)."""
+    from cover_vla_tpu_torch.models import verifier
+    it = verifier.member_image_text_embed(members, vcfg, feats)
+    ac = verifier.member_action_embed(members, vcfg, action_histories)
+    return (torch.exp(members["logit_scale"])[:, None, None]
+            * torch.einsum("mbd,mnd->mbn", it, ac))
+
+
+def topk_flip_bound(torch, eager_logits, dev_max: float) -> float:
+    """The most a member-mean top-k accuracy may move when every logit
+    moves by at most dev_max: the member mean of the share of rows (each
+    direction) in which some other logit lies within 2 dev_max of the
+    label's."""
+    bounds = []
+    for l in (eager_logits, eager_logits.transpose(-1, -2)):
+        diag = torch.diagonal(l, dim1=-2, dim2=-1)[..., None]
+        near = ((l - diag).abs() <= 2 * dev_max)
+        near = near & ~torch.eye(l.shape[-1], dtype=torch.bool,
+                                 device=l.device)
+        bounds.append(near.any(dim=-1).float().mean(dim=-1).mean().item())
+    return max(bounds)
+
+
+def compare_verifier_metrics(torch, what, eager, kernel, eager_logits,
+                             kernel_logits):
+    """Kernel vs eager training metrics: loss and member losses within
+    SCORE_ATOL, grad_norm within SCORE_ATOL of itself, the logit scale
+    equal, and each top-k accuracy within the share of rows a logit
+    deviation could reorder."""
+    dev_max = (kernel_logits - eager_logits).abs().max().item()
+    flip = topk_flip_bound(torch, eager_logits, dev_max)
+    diffs = {k: (kernel[k] - eager[k]).abs().max().item() for k in eager}
+    log(f"{what}: kernel vs eager: logits max |d| {dev_max:.3e}; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+        + f"; top-k flip bound {flip:.4f}")
+    for k, v in diffs.items():
+        if k.startswith("top"):
+            assert v <= flip + 1e-6, (what, k, v, flip)
+        elif k == "grad_norm":
+            assert v <= SCORE_ATOL * eager[k].abs().item(), (what, k, v)
+        elif k == "logit_scale":
+            assert v == 0, (what, k, v)
+        else:
+            assert v <= SCORE_ATOL, (what, k, v)
+
+
+def vtrain_full_width(torch, card, dev, vcfg, b=32):
+    """9.2: the frozen-backbone ensemble step at full width (3 members,
+    B = 32, the role's AdamW under linear warmup) under the eager and the
+    kernel config in turns: step times, card peak, device-busy share,
+    trainable count, K2's launches; kernel vs eager features, metrics and
+    members after one step; the backbone bit-equal. Returns the verifier
+    tree."""
+    from cover_vla_tpu_torch.configs import fast_verifier_config
+    from cover_vla_tpu_torch.models import verifier
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.training import optim
+    from cover_vla_tpu_torch.training import train_verifier as tv
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    params = verifier.init_verifier(11, vcfg, 3, device=dev)
+    backbone, members = params["backbone"], params["members"]
+    leaves = flatten(members)
+    n_train = sum(v.numel() for v in leaves.values())
+    want = verifier_trainable_reckoning(vcfg, 3)
+    log(f"verifier train full width: {sum(v.numel() for v in flatten(params).values()) / 1e9:.3f}B "
+        f"params, {n_train / 1e6:.3f}M trainable (3 members' heads; reckoned "
+        f"{want / 1e6:.3f}M from the config), B = {b}, "
+        f"{vcfg.vision.image_size}² images, {vcfg.text.context_length} text "
+        f"tokens | {card}")
+    assert n_train == want, (n_train, want)
+    start = {k: v.detach().clone() for k, v in leaves.items()}
+    frozen = {k: v.clone() for k, v in flatten(backbone).items()}
+    batch = to_device(torch, verifier_batch(np.random.default_rng(93), vcfg,
+                                            b), dev)
+    configs = {"eager": vcfg, "kernel": fast_verifier_config(vcfg)}
+    feats, logits = {}, {}
+    with torch.no_grad():
+        for name, cfg in configs.items():
+            ca.reset_launch_counts()
+            feats[name] = verifier.extract_features(
+                params, cfg, batch["images"], batch["text_tokens"])
+            assert ca.launch_counts["mha_dense"] == (
+                verifier_k2(vcfg) if name == "kernel" else 0), ca.launch_counts
+            logits[name] = verifier_logits(torch, vcfg, members, feats[name],
+                                           batch["action_histories"])
+    for part in ("patch", "text"):
+        e, k = getattr(feats["eager"], part), getattr(feats["kernel"], part)
+        d = (k - e).abs()
+        ok = bool((d <= FEAT_ATOL + FEAT_RTOL * e.abs()).all())
+        log(f"verifier train full width: kernel vs eager {part} features "
+            f"{tuple(e.shape)}: max |d| {d.max().item():.3e} (JAX bound atol "
+            f"{FEAT_ATOL} + rtol {FEAT_RTOL}: {'held' if ok else 'broken'})")
+        assert ok, part
+    del feats
+    first = {}
+    for name in ("eager", "kernel", "kernel", "eager"):
+        cfg = configs[name]
+        with torch.no_grad():
+            for k, v in leaves.items():
+                v.copy_(start[k])
+        tx = optim.make_adamw(optim.linear_warmup(5e-5, 100))
+        state = tv.VerifierTrainState(members, tx.init(leaves),
+                                      optim.counter())
+        step = tv.make_ensemble_train_step(cfg, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, launches, losses = [], [], []
+        for i in range(6):
+            ca.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, backbone, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append(ca.launch_counts["mha_dense"])
+            losses.append(m["loss"].item())
+            if i == 0 and name not in first:
+                first[name] = ({k: v.detach().clone() for k, v in m.items()},
+                               {k: v.detach().clone() for k, v in
+                                leaves.items()})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], backbone, batch)
+        prof = profile_step(torch, card, f"verifier train B={b}", one_step,
+                            label=name)
+        log(f"verifier train step {name}: median of steps 2-6 "
+            f"{np.median(secs[1:]) * 1e3:.1f} ms (steps "
+            f"{[round(x * 1e3, 1) for x in secs]} ms), card peak {peak:.2f} "
+            f"GB, device busy share {prof['busy_ms'] / prof['wall_ms']:.3f}, "
+            f"K2 launches a step {launches}, losses "
+            f"{[round(x, 5) for x in losses]} | {card}")
+        assert all(math.isfinite(x) for x in losses), losses
+        assert launches == [verifier_k2(vcfg) if name == "kernel" else 0] * 6, \
+            launches
+    (em, emembers), (km, kmembers) = first["eager"], first["kernel"]
+    compare_verifier_metrics(torch, "verifier train step 1", em, km,
+                             logits["eager"], logits["kernel"])
+    dm = max((kmembers[k] - emembers[k]).abs().max().item() for k in emembers)
+    log(f"verifier train step 1: kernel vs eager members max |d| {dm:.3e} "
+        f"(bound {TRAIN_PARAM_ATOL:g})")
+    assert dm <= TRAIN_PARAM_ATOL, dm
+    after = flatten(backbone)
+    assert all(torch.equal(after[k], v) for k, v in frozen.items()), \
+        "the frozen backbone changed"
+    log(f"verifier train full width: the backbone ({len(frozen)} leaves) "
+        f"bit-equal after {4 * 8} steps")
+    return params
+
+
+def vtrain_backbone_steps(torch, card, dev, vcfg, params):
+    """9.3: the whole verifier trained (eager): one make_full_train_step
+    at B = 16, refused under the kernel config; then the ranking (15
+    negatives), listwise and regression (16 candidates) steps at B = 32
+    with train_backbone=False. Step times and card peaks."""
+    import gc
+    from cover_vla_tpu_torch.configs import fast_verifier_config
+    from cover_vla_tpu_torch.training import optim
+    from cover_vla_tpu_torch.training import train_verifier as tv
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    rng = np.random.default_rng(94)
+    tx = optim.make_adamw(optim.linear_warmup(5e-5, 100))
+    leaves = flatten(params)
+    state = tv.FullVerifierTrainState(params, tx.init(leaves),
+                                      optim.counter())
+    n_all = sum(v.numel() for v in leaves.values())
+    runs = [("full", tv.make_full_train_step(vcfg, tx),
+             verifier_batch(rng, vcfg, 16))]
+    cands16 = candidate_batch(rng, vcfg, 32, 16)
+    runs += [("ranking, 15 negatives", tv.make_ranking_train_step(
+                  vcfg, tx, train_backbone=False), candidate_batch(
+                  rng, vcfg, 32, 16)),
+             ("listwise, 16 candidates", tv.make_listwise_train_step(
+                 vcfg, tx, train_backbone=False), cands16),
+             ("regression, 16 candidates", tv.make_regression_train_step(
+                 vcfg, tx, train_backbone=False), cands16)]
+    for name, step, np_batch in runs:
+        batch = to_device(torch, np_batch, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, losses = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        log(f"verifier train {name} (whole tree {n_all / 1e9:.3f}B, "
+            f"{'backbone trained' if name == 'full' else 'train_backbone=False'}"
+            f") B={batch['images'].shape[0]}: steps "
+            f"{[round(x * 1e3, 1) for x in secs]} ms (the first includes the "
+            f"allocator's growth), card peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, losses "
+            f"{[round(x, 5) for x in losses]} | {card}")
+        if name == "full":
+            kstep = tv.make_full_train_step(fast_verifier_config(vcfg), tx)
+            try:
+                kstep(state, batch)
+            except RuntimeError as e:
+                assert "no backward pass" in str(e), e
+                log(f"verifier train full step under the kernel config: "
+                    f"refused ({e})")
+            else:
+                raise AssertionError("the kernel-config full step ran")
+    for v in flatten(params).values():
+        v.requires_grad_(False)
+    del state, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vtrain_eval_and_retrieval(torch, card, dev, vcfg, params, probes=32,
+                              pool=20):
+    """9.4: ensemble_eval_metrics on a held-out batch and retrieval_test
+    over `probes` probes with pools of `pool`, eager and kernel: metrics,
+    every probe's scores within SCORE_ATOL, ranks differing only across
+    eager gaps below it, K2's launches per probe."""
+    from cover_vla_tpu_torch.configs import fast_verifier_config
+    from cover_vla_tpu_torch.eval.verifier_retrieval import (
+        display_results, retrieval_test)
+    from cover_vla_tpu_torch.models import verifier
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.training.train_verifier import (
+        ensemble_eval_metrics)
+
+    configs = {"eager": vcfg, "kernel": fast_verifier_config(vcfg)}
+    batch = to_device(torch, verifier_batch(np.random.default_rng(95), vcfg,
+                                            32), dev)
+    metrics, logits = {}, {}
+    for name, cfg in configs.items():
+        ca.reset_launch_counts()
+        metrics[name] = ensemble_eval_metrics(params["members"], cfg,
+                                              params["backbone"], batch)
+        assert ca.launch_counts["mha_dense"] == (
+            verifier_k2(vcfg) if name == "kernel" else 0), ca.launch_counts
+        with torch.no_grad():
+            feats = verifier.extract_features(params, cfg, batch["images"],
+                                              batch["text_tokens"])
+            logits[name] = verifier_logits(torch, vcfg, params["members"],
+                                           feats, batch["action_histories"])
+    log(f"verifier validation: eager {({k: round(v.item(), 5) for k, v in metrics['eager'].items()})}")
+    compare_verifier_metrics(torch, "verifier validation", metrics["eager"],
+                             metrics["kernel"], logits["eager"],
+                             logits["kernel"])
+
+    data = verifier_batch(np.random.default_rng(96), vcfg, probes)
+    results, scores = {}, {}
+    for name, cfg in configs.items():
+        ca.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = retrieval_test(params, cfg, data["images"],
+                                       data["text_tokens"],
+                                       data["action_histories"],
+                                       pool_size=pool, seed=5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = ca.launch_counts["mha_dense"]
+        log(f"verifier retrieval {name}: {probes} probes, pool {pool}, "
+            f"{wall:.2f} s, K2 launches {k2} ({k2 / probes:g} a probe); "
+            + display_results(results[name]).replace("\n", ";"))
+        assert k2 == (verifier_k2(vcfg) * probes if name == "kernel" else 0), k2
+        # every probe's scores, over the harness's own pools
+        rng = np.random.default_rng(5)
+        per = []
+        with torch.no_grad():
+            for i in range(probes):
+                others = [j for j in range(probes) if j != i]
+                idx = np.concatenate([[i], rng.choice(
+                    others, size=min(pool - 1, len(others)), replace=False)])
+                per.append(verifier.score_actions(
+                    params, cfg, torch.from_numpy(data["images"][i:i + 1]).to(dev),
+                    torch.from_numpy(data["text_tokens"][i:i + 1]).to(dev),
+                    torch.from_numpy(data["action_histories"][idx]).to(dev)
+                ).cpu().numpy())
+        scores[name] = np.stack(per)
+        ranks = [int(np.where(np.argsort(-s) == 0)[0][0]) for s in per]
+        assert results[name]["mean_rank"] == float(np.mean(ranks))
+    e, k = scores["eager"], scores["kernel"]
+    dev_max = float(np.abs(k - e).max())
+    e_rank = (e > e[:, :1]).sum(axis=1)
+    k_rank = (k > k[:, :1]).sum(axis=1)
+    gap = np.abs(e[:, 1:] - e[:, :1]).min(axis=1)
+    moved = e_rank != k_rank
+    log(f"verifier retrieval: kernel vs eager scores max |d| {dev_max:.3e} "
+        f"(bound {SCORE_ATOL}); ground-truth ranks differ in "
+        f"{int(moved.sum())} of {probes} probes (eager gaps there "
+        f"{np.round(gap[moved], 5).tolist()}, bound {SCORE_ATOL}) | {card}")
+    assert dev_max <= SCORE_ATOL, dev_max
+    assert (gap[moved] < SCORE_ATOL).all(), gap[moved]
+
+
+def write_bridge_dataset(root, n=96, hw=256, seed=12):
+    """A normalized Bridge-verifier JSON of n samples: .npy uint8 frames,
+    two instructions, action histories of 4-10 steps."""
+    from cover_vla_tpu_torch.data.bridge_verifier_dataset import (
+        save_normalized_dataset)
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    samples = []
+    for i in range(n):
+        np.save(os.path.join(root, f"img{i}.npy"),
+                rng.integers(0, 256, (hw, hw, 3), dtype=np.uint8))
+        samples.append({"image": f"img{i}.npy",
+                        "instruction": ("put the carrot on the plate",
+                                        "open the drawer")[i % 2],
+                        "action_history": rng.uniform(
+                            -1, 1, (int(rng.integers(4, 11)), 7))})
+    save_normalized_dataset(os.path.join(root, "dataset.json"), samples)
+
+
+def check_disk(tmp, need_bytes, what):
+    import shutil
+    free = shutil.disk_usage(tmp).free
+    log(f"{what} disk: {tmp}: {free / 1e9:.1f} GB free, needs at most "
+        f"{need_bytes / 1e9:.2f} GB at once")
+    if free < 1.1 * need_bytes:
+        raise AssertionError(f"{what} needs {need_bytes / 1e9:.1f} GB on "
+                             f"{tmp}, {free / 1e9:.1f} GB are free")
+
+
+def vtrain_entry_point(torch, card, dev, tiny=False, b=32):
+    """9.5: run.main --role train_verifier over a written bridge JSON of
+    96 samples, 6 steps with validation every 2, then resumed to 8:
+    best/, the merged ensemble read back bit-equal, the restored train
+    state bit-equal to the saved one; the seconds of each stage."""
+    import gc
+    import json
+    import shutil
+    import tempfile
+    from cover_vla_tpu_torch import run
+    from cover_vla_tpu_torch.configs import (
+        VerifierConfig, tiny_verifier_config)
+    from cover_vla_tpu_torch.convert import blob, checkpoints
+    from cover_vla_tpu_torch.convert.verifier_from_torch import (
+        convert_merged_checkpoint)
+    from cover_vla_tpu_torch.training import optim
+    from cover_vla_tpu_torch.training import train_verifier as tv
+    from cover_vla_tpu_torch.utils import param_bytes
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    vcfg = tiny_verifier_config() if tiny else VerifierConfig()
+    tmp = tempfile.mkdtemp(prefix="cvla_vtrain_")
+    try:
+        tx = optim.make_adamw(optim.linear_warmup(5e-5, 100))
+        backbone, state = tv.init_train_state(44, vcfg, tx, num_members=3,
+                                              device=dev)
+        target = tv.VerifierCheckpoint(state.members, state.opt_state,
+                                       backbone)
+        save_b = sum(v.numel() * v.element_size()
+                     for v in flatten(target._asdict()).values())
+        # two train states (a save and its rotation), best/ and the .pt
+        check_disk(tmp, 3 * save_b + param_bytes(state.members), "phase 9.5")
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        write_bridge_dataset(data, hw=64 if tiny else 256)
+        write_s = time.perf_counter() - t0
+        argv = ["--role", "train_verifier", "--train.tiny", str(tiny).lower(),
+                "--train.dataset_dir", data, "--train.checkpoint_dir", ck,
+                "--train.batch_size", str(b), "--train.val_every", "2",
+                "--train.keep_last", "1"]
+        t0 = time.perf_counter()
+        run.main(argv + ["--train.num_steps", "6"], device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        kept = [os.path.basename(p) for p in checkpoints.list_checkpoints(ck)]
+        assert kept == ["step_00000006"], kept
+        assert os.path.isfile(os.path.join(ck, "best", checkpoints.BLOB_NAME))
+        saved = blob.load_tree(os.path.join(ck, kept[0], checkpoints.BLOB_NAME))
+        t0 = time.perf_counter()
+        merged = convert_merged_checkpoint(
+            os.path.join(ck, "merged_ensemble.pt"), vcfg, device=dev)
+        torch.cuda.synchronize()
+        merged_s = time.perf_counter() - t0
+        got, want = flatten(merged["members"]), flatten(saved["members"])
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k].cpu(), want[k]) for k in want), \
+            "the merged ensemble's members differ from the saved ones"
+        t0 = time.perf_counter()
+        restored, at = checkpoints.restore_train_state(ck, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got, want = flatten(restored._asdict()), flatten(saved)
+        assert at == 6 and set(got) == set(want)
+        bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        assert not bad, f"restored leaves differ from the saved ones: {bad[:5]}"
+        del restored, target, state, backbone, got, want, merged
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run.main(argv + ["--train.num_steps", "8", "--train.resume", "true"],
+                 device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        final = blob.load_tree(os.path.join(checkpoints.latest_checkpoint(ck),
+                                             checkpoints.BLOB_NAME))
+        assert int(final["opt_state"]["1"]["count"]) == 8
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        val = [(r["_step"], round(r["val/top1_i2a"], 4)) for r in recs
+               if "val/top1_i2a" in r]
+        assert [s for s, _ in val] == [2, 4, 6, 8], val
+        log(f"verifier train entry point: run.main --role train_verifier at "
+            f"{'tiny' if tiny else 'full'} width, 96 samples ({'64' if tiny else '256'}² "
+            f".npy frames, written in {write_s:.1f} s), B={b}, 3 members: 6 "
+            f"steps with validation at 2, 4, 6 {first_s:.1f} s; merged "
+            f"ensemble read back in {merged_s:.2f} s, members bit-equal; a "
+            f"{save_b / 1e9:.2f} GB train state restored in {restore_s:.2f} "
+            f"s, {len(flatten(saved))} leaves bit-equal; resumed to 8 in "
+            f"{resume_s:.1f} s; val top1_i2a {val} | {card}")
+        del final, saved
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not os.path.exists(tmp)
+
+
+def fast_trainable_reckoning(cfg) -> int:
+    """Every leaf of π0-FAST: the vision tower, mm_proj and PaliGemma."""
+    v, g = cfg.vision, cfg.paligemma
+    linear = lambda i, o: i * o + o
+    p = v.patch_size * v.patch_size * 3
+    block = (4 * v.width + 4 * linear(v.width, v.width)
+             + linear(v.width, v.mlp_dim) + linear(v.mlp_dim, v.width))
+    vision = linear(p, v.width) + v.num_patches * v.width \
+        + v.depth * block + 2 * v.width
+    qd, kvd = g.num_heads * g.head_dim, g.num_kv_heads * g.head_dim
+    layer = (2 * g.width + g.width * qd + 2 * g.width * kvd + qd * g.width
+             + 3 * g.width * g.mlp_dim)
+    return (vision + linear(v.width, g.width) + g.depth * layer + g.width
+            + g.vocab_size * g.width)
+
+
+def fast_train_full_width(torch, card, dev, cfg, b=8):
+    """9.6: π0-FAST at full width, the whole tree, B = 8, one image, 256
+    input tokens: AdamW, then 8-bit AdamW: step time (median of steps
+    2-6), card peak, device-busy share, trainable count."""
+    import gc
+    from cover_vla_tpu_torch.training import optim, train_pi0, train_pi0fast
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    batch = to_device(torch, fast_batch(np.random.default_rng(97), cfg, b),
+                      dev)
+    n_tok = int(batch["pad_mask"].sum(dim=1).float().mean().item())
+    for opt in ("adamw", "adamw_8bit"):
+        tx = train_pi0.make_optimizer(optim.warmup_cosine(5e-5, 100, 1000),
+                                      optimizer=opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_pi0fast.init_train_state(8, cfg, tx, device=dev)
+        n_train = sum(v.numel() for v in flatten(state.params).values())
+        assert n_train == fast_trainable_reckoning(cfg), n_train
+        step = train_pi0fast.make_train_step(cfg, tx)
+        secs, losses = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], batch)
+        prof = profile_step(torch, card, f"π0-FAST train B={b}", one_step,
+                            label=opt)
+        state = held[0]
+        log(f"π0-FAST train step {opt}, whole tree ({n_train / 1e9:.3f}B "
+            f"trainable, equal to the config's reckoning), B={b}, "
+            f"{cfg.vision.num_patches} image + {cfg.max_input_seq_len} input "
+            f"tokens ({n_tok} real on average): median of steps 2-6 "
+            f"{np.median(secs[1:]) * 1e3:.1f} ms (steps "
+            f"{[round(x * 1e3, 1) for x in secs]} ms), card peak {peak:.2f} "
+            f"GB, device busy share {prof['busy_ms'] / prof['wall_ms']:.3f}, "
+            f"losses {[round(x, 5) for x in losses]} | {card}")
+        assert all(math.isfinite(x) for x in losses), losses
+        del state, held, step, tx
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def write_rlds_episodes(root, n=2, frames=40, hw=256, seed=13):
+    """One raw-image RLDS shard of n episodes (no PIL needed)."""
+    from cover_vla_tpu_torch.data.rlds import write_rlds_shard
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    eps = [{"images": rng.integers(0, 256, (frames, hw, hw, 3), dtype=np.uint8),
+            "states": rng.standard_normal((frames, 7)).astype(np.float32),
+            "actions": rng.uniform(-1, 1, (frames, 7)).astype(np.float32),
+            "task": ("put the carrot on the plate", "open the drawer")[i % 2]}
+           for i in range(n)]
+    write_rlds_shard(os.path.join(root, "fix.tfrecord-00000-of-00001"), eps,
+                     image_format="raw")
+
+
+def fast_train_entry_point(torch, card, dev, cfg, tiny=False, b=8):
+    """9.7: run.main --role train_pi0fast over one raw-image RLDS shard
+    (--train.data_format rlds), adamw_8bit, 4 steps, then resumed to 6:
+    the restored state bit-equal to the saved one; stage seconds."""
+    import gc
+    import shutil
+    import tempfile
+    from cover_vla_tpu_torch import run
+    from cover_vla_tpu_torch.convert import blob, checkpoints
+    from cover_vla_tpu_torch.training import optim, train_pi0, train_pi0fast
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    tmp = tempfile.mkdtemp(prefix="cvla_fasttrain_")
+    try:
+        tx = train_pi0.make_optimizer(optim.warmup_cosine(5e-5, 100, 6),
+                                      optimizer="adamw_8bit")
+        target = train_pi0fast.init_train_state(45, cfg, tx, device=dev)
+        save_b = sum(v.numel() * v.element_size()
+                     for v in flatten(target._asdict()).values())
+        check_disk(tmp, 2.1 * save_b, "phase 9.7")
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        write_rlds_episodes(data, hw=64 if tiny else 256)
+        argv = ["--role", "train_pi0fast", "--train.tiny", str(tiny).lower(),
+                "--train.data_format", "rlds", "--train.dataset_dir", data,
+                "--train.checkpoint_dir", ck, "--train.batch_size", str(b),
+                "--train.optimizer", "adamw_8bit", "--train.keep_last", "1"]
+        t0 = time.perf_counter()
+        run.main(argv + ["--train.num_steps", "4"], device=dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        kept = [os.path.basename(p) for p in checkpoints.list_checkpoints(ck)]
+        assert kept == ["step_00000004"], kept
+        saved = blob.load_tree(os.path.join(ck, kept[0], checkpoints.BLOB_NAME))
+        t0 = time.perf_counter()
+        restored, at = checkpoints.restore_train_state(ck, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got, want = flatten(restored._asdict()), flatten(saved)
+        assert at == 4 and set(got) == set(want)
+        bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        assert not bad, f"restored leaves differ from the saved ones: {bad[:5]}"
+        del restored, target, got, want, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run.main(argv + ["--train.num_steps", "6", "--train.resume", "true"],
+                 device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        final = blob.load_tree(os.path.join(checkpoints.latest_checkpoint(ck),
+                                             checkpoints.BLOB_NAME))
+        assert int(final["step"]) == 6
+        assert int(final["opt_state"]["1"]["count"]) == 6
+        log(f"π0-FAST train entry point: run.main --role train_pi0fast at "
+            f"{'tiny' if tiny else 'full'} width over one raw-image RLDS shard "
+            f"(2 x 40 frames), B={b}, adamw_8bit: 4 steps and a save "
+            f"{first_s:.1f} s; a {save_b / 1e9:.2f} GB train state restored in "
+            f"{restore_s:.2f} s, bit-equal; resumed to 6 in {resume_s:.1f} s "
+            f"| {card}")
+        del final
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not os.path.exists(tmp)
+
+
+def training_phase_9(torch, card, dev):
+    import gc
+    from cover_vla_tpu_torch.configs import VerifierConfig
+    from cover_vla_tpu_torch.models.pi0fast import Pi0FastConfig
+    vcfg = VerifierConfig()
+    vtrain_small_reference(torch, dev)
+    params = vtrain_full_width(torch, card, dev, vcfg)
+    vtrain_eval_and_retrieval(torch, card, dev, vcfg, params)
+    vtrain_backbone_steps(torch, card, dev, vcfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    vtrain_entry_point(torch, card, dev)
+    fcfg = Pi0FastConfig()
+    fast_train_full_width(torch, card, dev, fcfg)
+    fast_train_entry_point(torch, card, dev, fcfg)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2504,6 +3301,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_phase(torch, card, dev)
     log(f"phase 8 training: wall {time.perf_counter() - t0:.1f} s")
+    # phase 9: verifier and π0-FAST training --------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_phase_9(torch, card, dev)
+    log(f"phase 9 verifier and π0-FAST training: wall "
+        f"{time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from cover_vla_tpu_torch.configs import GemmaConfig
-from cover_vla_tpu_torch.models.params import Init, ParamTree, take_layer
+from cover_vla_tpu_torch.models.params import (
+    Init, ParamTree, iter_layers, take_layer, unstack_layers)
 from cover_vla_tpu_torch.ops.attention import (
     ATTN_BACKENDS, BIG_NEG, gqa_attention)
 from cover_vla_tpu_torch.ops import quant
@@ -125,16 +126,6 @@ def _post_attention(layer: dict, cfg: GemmaConfig, h: torch.Tensor,
     return h + _mm(gated, layer, "down")
 
 
-def _unstack(layers) -> list:
-    """The [depth]-stacked layer weights as one dict of views per layer.
-    `unbind` once per leaf, so the backward pass stacks each weight's
-    layer gradients once (a `select` per layer would add a full-depth
-    gradient per layer)."""
-    names = list(layers)
-    per_leaf = [torch.unbind(layers[k]) for k in names]
-    return [dict(zip(names, views)) for views in zip(*per_leaf)]
-
-
 # ---------------------------------------------------------------------------
 # Fused training forward (both spans, no cache)
 # ---------------------------------------------------------------------------
@@ -161,8 +152,8 @@ def fused_forward(pg_params: ParamTree, ex_params: ParamTree,
     """
     p_len = prefix_emb.shape[1]
     pos_p, pos_s = positions[:, :p_len], positions[:, p_len:]
-    pg_layers = _unstack(pg_params["layers"])
-    ex_layers = _unstack(ex_params["layers"])
+    pg_layers = unstack_layers(pg_params["layers"])
+    ex_layers = unstack_layers(ex_params["layers"])
 
     def layer_pair(i: int, h_p: torch.Tensor, h_s: torch.Tensor):
         lp, ls = pg_layers[i], ex_layers[i]
@@ -198,7 +189,9 @@ def prefill(pg_params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
     """Run the LM on the prefix, emitting per-layer K/V.
 
     Returns (hidden_or_None, cache) with cache = {"k": [L,B,P,Hkv,D],
-    "v": [L,B,P,Hkv,D]} in the stack's compute dtype.
+    "v": [L,B,P,Hkv,D]} in the stack's compute dtype. Under autograd only
+    `hidden` is differentiable: the cache holds detached copies, so the
+    graph keeps no per-layer cache writes.
     """
     if attn_impl not in ATTN_BACKENDS:
         raise ValueError(f"unknown attention backend {attn_impl!r}")
@@ -222,11 +215,10 @@ def prefill(pg_params: ParamTree, cfg: GemmaConfig, prefix_emb: torch.Tensor,
     shape = (cfg.depth, b, p_len, cfg.num_kv_heads, cfg.head_dim)
     cache = {"k": torch.empty(shape, dtype=dtype, device=h.device),
              "v": torch.empty(shape, dtype=dtype, device=h.device)}
-    for i in range(cfg.depth):
-        layer = take_layer(layers, i)
+    for i, layer in enumerate(iter_layers(layers, cfg.depth)):
         q, k, v = _qkv(layer, cfg, h, positions)
-        cache["k"][i] = k
-        cache["v"][i] = v
+        cache["k"][i] = k.detach()
+        cache["v"][i] = v.detach()
         h = _post_attention(layer, cfg, h, attend(q, k, v))
     if return_hidden:
         return rms_norm(h, pg_params["final_norm"], cfg.rms_eps), cache

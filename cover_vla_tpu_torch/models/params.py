@@ -59,6 +59,33 @@ def take_layer(tree, i: int, axis: int = 0) -> dict:
                 else tree[k].select(axis, i)) for k in tree}
 
 
+def unstack_layers(tree, axis: int = 0) -> list:
+    """Every layer of a tree whose leaves are stacked along `axis`, as one
+    nested dict of views per layer, from one `unbind` per leaf. Under
+    autograd the backward pass then stacks each leaf's layer gradients
+    once; a `select` per layer (`take_layer`) adds a zero gradient of the
+    whole stacked leaf per layer."""
+    layers = None
+    for k in tree:
+        v = tree[k]
+        parts = (unstack_layers(v, axis) if isinstance(v, (Mapping, ParamTree))
+                 else v.unbind(axis))
+        if layers is None:
+            layers = [{} for _ in parts]
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
+
+
+def iter_layers(tree, depth: int, axis: int = 0):
+    """The `depth` layers of a stacked tree in order: `unstack_layers`
+    when grad is enabled, else `take_layer` one layer at a time (the
+    no-grad serving paths keep their per-layer views)."""
+    if torch.is_grad_enabled():
+        return unstack_layers(tree, axis)
+    return (take_layer(tree, i, axis) for i in range(depth))
+
+
 class Init:
     """Seeded random tensors on one device: a `torch.Generator` in place of
     the reference's `jax.random` keys. The same shapes, dtypes and scales

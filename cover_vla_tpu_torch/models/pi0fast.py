@@ -11,7 +11,8 @@ Decoded tokens are inverted through the DCT+BPE FAST tokenizer
 The greedy decode runs over a preallocated KV cache (`gemma.ar_generate`);
 the prefix stays right-padded (invalid slots are masked, nothing is
 shifted). The prefill and decode attention are eager, as in the reference
-package, whose decode attention is XLA, not a Pallas kernel.
+package, whose decode attention is XLA, not a Pallas kernel. Training is
+teacher-forced CE over the action tokens (`token_ce_loss`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from cover_vla_tpu_torch.eval.adapters import lanczos4_resize_uint8
 from cover_vla_tpu_torch.models import gemma, siglip
 from cover_vla_tpu_torch.models.params import Init, ParamTree
 from cover_vla_tpu_torch.models.pi0 import _linear
+from cover_vla_tpu_torch.ops.masks import make_att_2d_masks
 
 
 @dataclass(frozen=True)
@@ -143,6 +145,36 @@ def generate_action_tokens(params: ParamTree, cfg: Pi0FastConfig,
     return gemma.ar_generate(params["paligemma"], cfg.paligemma, embs, pad,
                              cfg.max_decoding_steps, cfg.eos_token_id,
                              cfg.pad_token_id)
+
+
+def token_ce_loss(params: ParamTree, cfg: Pi0FastConfig, images: torch.Tensor,
+                  img_masks: torch.Tensor, tokens: torch.Tensor,
+                  pad_mask: torch.Tensor,
+                  suffix_mask: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced CE on the action-token suffix: the prefix attends
+    bidirectionally, the suffix causally; targets are the next tokens, and
+    the loss is the mean over positions in the suffix and not padding (the
+    count clipped at 1). The LM head's logits are fp32 over the whole
+    vocabulary. The prefill's attention is eager (the kernels have no
+    backward pass)."""
+    embs, pad = embed_prefix(params, cfg, images, img_masks, tokens, pad_mask)
+    n_img_tokens = embs.shape[1] - tokens.shape[1]
+    b = tokens.shape[0]
+    att = torch.cat([torch.zeros((b, n_img_tokens), dtype=torch.int32,
+                                 device=tokens.device),
+                     suffix_mask.to(torch.int32)], dim=1)
+    mask2d = make_att_2d_masks(pad, att)
+    positions = torch.cumsum(pad.to(torch.int32), dim=1) - 1
+    hidden, _ = gemma.prefill(params["paligemma"], cfg.paligemma, embs,
+                              positions, mask2d, return_hidden=True)
+    text_hidden = hidden[:, n_img_tokens:]
+    logits = gemma.lm_logits(params["paligemma"], cfg.paligemma,
+                             text_hidden[:, :-1])
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    weight = (suffix_mask[:, 1:] & pad_mask[:, 1:]).float()
+    return (nll * weight).sum() / weight.sum().clamp_min(1.0)
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from cover_vla_tpu_torch.configs import SiglipTextConfig, VitConfig
-from cover_vla_tpu_torch.models.params import Init, ParamTree, take_layer
+from cover_vla_tpu_torch.models.params import Init, ParamTree, iter_layers
 from cover_vla_tpu_torch.ops import quant
 from cover_vla_tpu_torch.ops.attention import mha_attention
 from cover_vla_tpu_torch.ops.image import patchify
@@ -131,9 +131,8 @@ def vit_forward(params: ParamTree, cfg: VitConfig,
     h = patches @ pe["kernel"] + pe["bias"]
     h = h + params["pos_emb"][None]
     last_attn = torch.zeros_like(h)
-    for i in range(cfg.depth):
-        h, last_attn = _block(take_layer(params["blocks"], i), h,
-                              cfg.num_heads, cfg.ln_eps,
+    for layer in iter_layers(params["blocks"], cfg.depth):
+        h, last_attn = _block(layer, h, cfg.num_heads, cfg.ln_eps,
                               gelu_approx=cfg.gelu_approx,
                               attn_impl=cfg.attn_impl)
     tokens = layer_norm(h, params["final_ln"]["scale"],
@@ -174,10 +173,9 @@ def text_forward(params: ParamTree, cfg: SiglipTextConfig,
     t = tokens.shape[1]
     h = params["token_embed"][tokens.long()]
     h = h + params["pos_emb"][:t][None]
-    for i in range(cfg.depth):
-        h, _ = _block(take_layer(params["blocks"], i), h, cfg.num_heads,
-                      cfg.ln_eps, gelu_approx=cfg.gelu_approx,
-                      attn_impl=cfg.attn_impl)
+    for layer in iter_layers(params["blocks"], cfg.depth):
+        h, _ = _block(layer, h, cfg.num_heads, cfg.ln_eps,
+                      gelu_approx=cfg.gelu_approx, attn_impl=cfg.attn_impl)
     h = layer_norm(h, params["ln_final"]["scale"], params["ln_final"]["bias"],
                    cfg.ln_eps)
     proj = params["text_projection"]

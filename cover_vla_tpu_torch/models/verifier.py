@@ -16,7 +16,7 @@ and the head attention is eager.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from cover_vla_tpu_torch.configs import VerifierConfig
 from cover_vla_tpu_torch.device import resolve_device
 from cover_vla_tpu_torch.models import siglip
-from cover_vla_tpu_torch.models.params import Init, ParamTree, take_layer
+from cover_vla_tpu_torch.models.params import Init, ParamTree, iter_layers
 from cover_vla_tpu_torch.ops.attention import mha_attention
 from cover_vla_tpu_torch.ops.norms import layer_norm
 
@@ -101,29 +101,48 @@ def init_traj_encoder(init: Init, m: int, dim: int, num_layers: int) -> dict:
     }
 
 
+def _init_members(init: Init, cfg: VerifierConfig, m: int) -> dict:
+    d = cfg.vision_pooling_output_dim
+    return {
+        "logit_scale": init.full((m,), cfg.logit_scale_init),
+        "tave_temperature": init.full((m,), cfg.tave_temperature_init),
+        "text_pooling": init_attention_pooling(
+            init, m, cfg.text.embed_dim, cfg.text_pooling_output_dim,
+            cfg.pooling_layers, cfg.num_readouts),
+        "vision_pooling": init_attention_pooling(
+            init, m, cfg.vision.width, d, cfg.pooling_layers,
+            cfg.num_readouts),
+        "input_projection": init.linear(cfg.fused_dim, d, (m,)),
+        "action_in": init.linear(cfg.action_dim, d, (m,)),
+        "traj": init_traj_encoder(init, m, d, cfg.traj_layers),
+    }
+
+
+def init_member(seed: int, cfg: VerifierConfig, num_members: int = 1, *,
+                device=None) -> ParamTree:
+    """Randomly initialised trainable heads of `num_members` members,
+    member axis first (the reference's one member is num_members=1), on
+    `device` (CUDA unless given)."""
+    return ParamTree(_init_members(Init(seed, resolve_device(device)), cfg,
+                                   num_members))
+
+
 def init_verifier(seed: int, cfg: VerifierConfig, num_members: int = 1, *,
                   device=None) -> ParamTree:
     """Randomly initialised verifier with `num_members` stacked heads, on
     `device` (CUDA unless given)."""
     init = Init(seed, resolve_device(device))
-    m, d = num_members, cfg.vision_pooling_output_dim
     return ParamTree({
         "backbone": {"vision": siglip.init_vit(init, cfg.vision),
                      "text": siglip.init_text_tower(init, cfg.text)},
-        "members": {
-            "logit_scale": init.full((m,), cfg.logit_scale_init),
-            "tave_temperature": init.full((m,), cfg.tave_temperature_init),
-            "text_pooling": init_attention_pooling(
-                init, m, cfg.text.embed_dim, cfg.text_pooling_output_dim,
-                cfg.pooling_layers, cfg.num_readouts),
-            "vision_pooling": init_attention_pooling(
-                init, m, cfg.vision.width, d, cfg.pooling_layers,
-                cfg.num_readouts),
-            "input_projection": init.linear(cfg.fused_dim, d, (m,)),
-            "action_in": init.linear(cfg.action_dim, d, (m,)),
-            "traj": init_traj_encoder(init, m, d, cfg.traj_layers),
-        },
+        "members": _init_members(init, cfg, num_members),
     })
+
+
+def member_slice(members, i: int) -> dict:
+    """Member i of a member-axis tree, keeping the axis (length 1)."""
+    return {k: (member_slice(v, i) if isinstance(v, (Mapping, ParamTree))
+                else v[i:i + 1]) for k, v in members.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +161,8 @@ def attention_pooling(p, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     r, inter = query.shape[1:]
     d = inter // num_heads
     q = query[:, None].expand(m, b, r, inter)
-    for i in range(p["blocks"]["q_ln"]["scale"].shape[1]):
-        layer = take_layer(p["blocks"], i, axis=1)
+    depth = p["blocks"]["q_ln"]["scale"].shape[1]
+    for layer in iter_layers(p["blocks"], depth, axis=1):
         qn = _mln(layer["q_ln"], q)
         qh = _mlinear(layer["attn"]["q"], qn).reshape(m * b, r, num_heads, d)
         kh = _mlinear(layer["attn"]["k"], x).reshape(m * b, -1, num_heads, d)
@@ -163,8 +182,7 @@ def traj_encoder(p, x: torch.Tensor, pad_mask: torch.Tensor,
     m, b, h, dim = x.shape
     d = dim // num_heads
     attn_mask = (~pad_mask)[:, None, :].expand(b, h, h).repeat(m, 1, 1)
-    for i in range(p["ln1"]["scale"].shape[1]):
-        layer = take_layer(p, i, axis=1)
+    for layer in iter_layers(p, p["ln1"]["scale"].shape[1], axis=1):
         qh = _mlinear(layer["attn"]["q"], x).reshape(m * b, h, num_heads, d)
         kh = _mlinear(layer["attn"]["k"], x).reshape(m * b, h, num_heads, d)
         vh = _mlinear(layer["attn"]["v"], x).reshape(m * b, h, num_heads, d)
@@ -258,3 +276,41 @@ def score_actions(params: ParamTree, cfg: VerifierConfig, image: torch.Tensor,
     feats = extract_features(params, cfg, image, text_tokens)
     fused_it, fused_ac = ensemble_embed(params, cfg, feats, action_histories)
     return (fused_it @ fused_ac.T)[0]
+
+
+def image_text_embed(params: ParamTree, cfg: VerifierConfig,
+                     images: torch.Tensor,
+                     text_tokens: torch.Tensor) -> torch.Tensor:
+    """Ensemble-fused image+text embeddings [B, d], L2-normalised: the
+    scene-familiarity signal of the engine's phase-aware deference."""
+    feats = extract_features(params, cfg, images, text_tokens)
+    return _l2norm(member_image_text_embed(params["members"], cfg,
+                                           feats).mean(dim=0))
+
+
+def contrastive_logits(params: ParamTree, cfg: VerifierConfig,
+                       images: torch.Tensor, text_tokens: torch.Tensor,
+                       action_histories: torch.Tensor, member_idx: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-time symmetric logits of one member, scaled by
+    exp(logit_scale): (image->action [B, Ba], its transpose)."""
+    member = member_slice(params["members"], member_idx)
+    feats = extract_features(params, cfg, images, text_tokens)
+    it = member_image_text_embed(member, cfg, feats)[0]
+    ac = member_action_embed(member, cfg, action_histories)[0]
+    image_logits = torch.exp(member["logit_scale"][0]) * (it @ ac.T)
+    return image_logits, image_logits.T
+
+
+def pad_action_histories(histories, history_len: int = 10,
+                         pad_value: float = -5.0) -> np.ndarray:
+    """Host helper: top-pad variable-length histories to [N, H, D]."""
+    out = []
+    for ah in histories:
+        ah = np.asarray(ah, dtype=np.float32)
+        if len(ah) < history_len:
+            pad = np.full((history_len - len(ah), ah.shape[1]), pad_value,
+                          dtype=np.float32)
+            ah = np.vstack([pad, ah])
+        out.append(ah[:history_len])
+    return np.stack(out)

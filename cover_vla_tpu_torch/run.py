@@ -1,13 +1,15 @@
 """Unified CLI entry point of the PyTorch port.
 
 Roles ported so far:
-  train            — pi0 finetuning on a trajectory dataset (npz dir)
+  train            — pi0 finetuning on a trajectory dataset (npz dir or
+                     rlds shards)
+  train_pi0fast    — pi0-FAST finetuning (CE over FAST action tokens)
+  train_verifier   — verifier contrastive training
   serve_policy     — websocket policy server (pi0 or CoVer engine)
   eval             — closed-loop CoVer evaluation on a benchmark suite
 
-The JAX package's `train_pi0fast`, `train_verifier` and `bench` roles are
-not ported yet: `main` stops on them with SystemExit, as it does on
-`--train.data_format rlds` and on a multi-process launch. The config
+The JAX package's `bench` role is not ported yet: `main` stops on it with
+SystemExit, as the training roles do on a multi-process launch. The config
 classes are the JAX package's, field for field and default for default,
 so every YAML of `config/` parses the same in both packages.
 
@@ -15,8 +17,8 @@ Usage: python -m cover_vla_tpu_torch.run --role train \
        --train.dataset_dir <dir of .npz trajectories> --train.batch_size 32
 
 Everything runs on the first CUDA device unless `--device` (or
-`main(argv, device=)`) names another; `role_train`, `build_server` and
-`role_eval` take `device=` too (the tests pass "cpu").
+`main(argv, device=)`) names another; every role and `build_server` take
+`device=` too (the tests pass "cpu").
 """
 
 from __future__ import annotations
@@ -138,6 +140,40 @@ def _load_trajectories(dataset_dir: str):
     return trajs
 
 
+def _one_process() -> None:
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit("multi-process training is not ported yet "
+                         "(ROADMAP A.4); launch one process")
+
+
+def _frame_dataset(t: TrainCfg, chunk_size: int, paraphrase=None):
+    """The training frames of `--train.dataset_dir`: npz trajectories, or
+    RLDS TFRecord shards streamed one episode at a time."""
+    from cover_vla_tpu_torch.data.pipeline import (
+        FrameDataset, StreamingFrameDataset)
+    if t.data_format == "rlds":
+        from cover_vla_tpu_torch.data.rlds import RldsShardDataset
+        return StreamingFrameDataset(RldsShardDataset(t.dataset_dir),
+                                     chunk_size=chunk_size,
+                                     paraphrase=paraphrase)
+    return FrameDataset(_load_trajectories(t.dataset_dir),
+                        chunk_size=chunk_size, paraphrase=paraphrase)
+
+
+def _bilinear_image_fn(size: int):
+    """uint8 [B, H, W, 3] on the device -> [-1, 1] fp32 at size x size
+    (the PyTorch bilinear resize, only when the frames differ in size)."""
+    from cover_vla_tpu_torch.ops.image import resize_bilinear_torch
+
+    def image_fn(imgs):
+        x = imgs.float() / 255.0 * 2.0 - 1.0
+        if tuple(imgs.shape[1:3]) != (size, size):
+            x = resize_bilinear_torch(x, size, size)
+        return x
+
+    return image_fn
+
+
 def role_train(cfg: RunCfg, device=None):
     """pi0 finetuning: expert-only (the partitioned state) or the whole
     tree, AdamW or 8-bit AdamW under warmup-cosine, optional validation,
@@ -148,8 +184,7 @@ def role_train(cfg: RunCfg, device=None):
     from cover_vla_tpu_torch.configs import Pi0Config, tiny_pi0_config
     from cover_vla_tpu_torch.convert import checkpoints
     from cover_vla_tpu_torch.data.pipeline import (
-        FrameDataset, ParaphraseAugment, batcher, interleave, make_pi0_batch,
-        prefetch)
+        ParaphraseAugment, batcher, interleave, make_pi0_batch, prefetch)
     from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
     from cover_vla_tpu_torch.device import resolve_device
     from cover_vla_tpu_torch.training import train_pi0
@@ -159,12 +194,7 @@ def role_train(cfg: RunCfg, device=None):
     from cover_vla_tpu_torch.utils.monitor import Timer, setup_logger
 
     t = cfg.train
-    if t.data_format == "rlds":
-        raise SystemExit("--train.data_format rlds is not ported yet "
-                         "(ROADMAP A.3 f); use npz trajectories")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-process training is not ported yet "
-                         "(ROADMAP A.4); launch one process")
+    _one_process()
     dev = resolve_device(device)
     log = setup_logger("train")
     mcfg = tiny_pi0_config() if t.tiny else Pi0Config()
@@ -175,8 +205,7 @@ def role_train(cfg: RunCfg, device=None):
         from cover_vla_tpu_torch.eval.rephrase import load_rephrases
         paraphrase = ParaphraseAugment(load_rephrases(t.paraphrase_json),
                                        prob=t.paraphrase_prob)
-    ds = FrameDataset(_load_trajectories(t.dataset_dir),
-                      chunk_size=mcfg.chunk_size, paraphrase=paraphrase)
+    ds = _frame_dataset(t, mcfg.chunk_size, paraphrase)
 
     s = mcfg.vision.image_size
     if t.augment:
@@ -186,13 +215,10 @@ def role_train(cfg: RunCfg, device=None):
         def image_fn(gen, imgs):
             return augment_frame(gen, imgs, (s, s))
     else:
-        from cover_vla_tpu_torch.ops.image import resize_bilinear_torch
+        resize = _bilinear_image_fn(s)
 
         def image_fn(gen, imgs):
-            x = imgs.float() / 255.0 * 2.0 - 1.0
-            if tuple(imgs.shape[1:3]) != (s, s):
-                x = resize_bilinear_torch(x, s, s)
-            return x
+            return resize(imgs)
 
     def device_batch(frame_batch, gen):
         batch = make_pi0_batch(frame_batch, tok, mcfg)
@@ -260,6 +286,182 @@ def role_train(cfg: RunCfg, device=None):
                                          state, keep_last=t.keep_last)
     checkpoints.save_train_state(t.checkpoint_dir, t.num_steps, state,
                                  keep_last=t.keep_last)
+    sinks.close()
+    log.info("done")
+
+
+def role_train_pi0fast(cfg: RunCfg, device=None):
+    """pi0-FAST finetuning: teacher-forced CE over FAST action tokens,
+    the whole tree trained under warmup-cosine AdamW or 8-bit AdamW, over
+    the npz or RLDS frames of `role_train`; train-state checkpoints under
+    <checkpoint_dir>/step_<N>/ and a resume from the latest one."""
+    import torch
+    from cover_vla_tpu_torch.convert import checkpoints
+    from cover_vla_tpu_torch.data.fast_tokenizer import FastActionTokenizer
+    from cover_vla_tpu_torch.data.pipeline import batcher, interleave, prefetch
+    from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
+    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.models.pi0fast import (
+        Pi0FastConfig, tiny_pi0fast_config)
+    from cover_vla_tpu_torch.training import train_pi0fast
+    from cover_vla_tpu_torch.training.optim import warmup_cosine
+    from cover_vla_tpu_torch.training.train_pi0 import make_optimizer
+    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
+    from cover_vla_tpu_torch.utils.monitor import Timer, setup_logger
+
+    t = cfg.train
+    _one_process()
+    dev = resolve_device(device)
+    log = setup_logger("train_pi0fast")
+    mcfg = tiny_pi0fast_config() if t.tiny else Pi0FastConfig()
+    tok = make_policy_tokenizer(mcfg.paligemma.vocab_size)
+    ds = _frame_dataset(t, mcfg.chunk_size)
+    image_fn = _bilinear_image_fn(mcfg.vision.image_size)
+    fast = FastActionTokenizer(time_horizon=mcfg.chunk_size, action_dim=7)
+    sinks = make_sinks(
+        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
+                                                   "metrics.jsonl"),
+        wandb_project=t.wandb_project or None)
+    tx = make_optimizer(warmup_cosine(t.lr, t.warmup_steps, t.num_steps),
+                        optimizer=t.optimizer, accumulate_steps=t.grad_accum)
+    state = train_pi0fast.init_train_state(t.seed, mcfg, tx, device=dev)
+    step_fn = train_pi0fast.make_train_step(mcfg, tx)
+    start = 0
+    if t.resume:
+        state, start = checkpoints.restore_train_state(t.checkpoint_dir,
+                                                       state)
+        log.info("resumed from step %d", start)
+    timer = Timer()
+    frames = prefetch(batcher(interleave([ds], seed=t.seed,
+                                         shuffle_buffer=t.shuffle_buffer),
+                              t.batch_size))
+    for i, frame_batch in enumerate(frames):
+        if start + i >= t.num_steps:
+            break
+        batch = train_pi0fast.make_fast_batch(frame_batch, tok, mcfg,
+                                              fast_tokenizer=fast)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+                 if k != "images"}
+        imgs = torch.from_numpy(np.asarray(frame_batch["image"])).to(dev)
+        batch["images"] = image_fn(imgs)[:, None]
+        state, metrics = step_fn(state, batch)
+        if (start + i) % 10 == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            sinks.log(m, step=start + i)
+            log.info("step %d loss %.4f (%.2fs)", start + i, m["loss"],
+                     timer.elapsed())
+        if (start + i + 1) % t.save_every == 0:
+            checkpoints.save_train_state(t.checkpoint_dir, start + i + 1,
+                                         state, keep_last=t.keep_last)
+    checkpoints.save_train_state(t.checkpoint_dir, t.num_steps, state,
+                                 keep_last=t.keep_last)
+    sinks.close()
+    log.info("done")
+
+
+def role_train_verifier(cfg: RunCfg, device=None):
+    """Verifier ensemble training from a normalized Bridge-verifier JSON
+    (train.dataset_dir is the JSON file or its directory, which then
+    holds dataset.json): all --train.num_members members in one step,
+    retrieval top-1 validated on a held-out split, the best parameters
+    under <checkpoint_dir>/best/ plus the last keep_last train states, a
+    resume from the latest one, and the merged ensemble exported in the
+    reference .pt schema (merged_ensemble.pt)."""
+    import torch
+    from cover_vla_tpu_torch.configs import (
+        VerifierConfig, tiny_verifier_config)
+    from cover_vla_tpu_torch.convert import checkpoints
+    from cover_vla_tpu_torch.convert.verifier_to_torch import (
+        save_merged_ensemble)
+    from cover_vla_tpu_torch.data.bridge_verifier_dataset import (
+        BridgeVerifierDataset)
+    from cover_vla_tpu_torch.data.tokenizer import make_verifier_tokenizer
+    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.training import train_verifier
+    from cover_vla_tpu_torch.training.optim import linear_warmup, make_adamw
+    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
+    from cover_vla_tpu_torch.utils.monitor import setup_logger
+
+    t = cfg.train
+    _one_process()
+    dev = resolve_device(device)
+    log = setup_logger("train_verifier")
+    vcfg = tiny_verifier_config() if t.tiny else VerifierConfig()
+    json_path = t.dataset_dir if t.dataset_dir.endswith(".json") else \
+        os.path.join(t.dataset_dir, "dataset.json")
+    ds = BridgeVerifierDataset(json_path, history_length=vcfg.history_length,
+                               image_size=vcfg.vision.image_size)
+    tok = make_verifier_tokenizer(vcfg.text.vocab_size)
+    ctx = vcfg.text.context_length
+
+    def on_device(batch):
+        batch.pop("instructions")
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    val_batch = None
+    if t.val_every:
+        ds, val_ds = ds.split(t.val_fraction, seed=t.seed)
+        val_batch = on_device(next(val_ds.batches(
+            min(t.batch_size, len(val_ds)), tok, ctx, seed=0)))
+    if len(ds) < t.batch_size:
+        raise ValueError(f"{len(ds)} training samples make no batch of "
+                         f"{t.batch_size}")
+
+    tx = make_adamw(linear_warmup(t.lr, t.warmup_steps))
+    backbone, state = train_verifier.init_train_state(
+        t.seed, vcfg, tx, num_members=t.num_members, device=dev)
+    step_fn = train_verifier.make_ensemble_train_step(vcfg, tx)
+    sinks = make_sinks(
+        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
+                                                   "metrics.jsonl"),
+        wandb_project=t.wandb_project or None)
+
+    def saved():
+        return train_verifier.VerifierCheckpoint(state.members,
+                                                 state.opt_state, backbone)
+
+    start = 0
+    if t.resume:
+        # in place: the members, their moments and the backbone
+        _, start = checkpoints.restore_train_state(t.checkpoint_dir, saved())
+        log.info("resumed from step %d", start)
+
+    def save(step_i):
+        checkpoints.save_train_state(t.checkpoint_dir, step_i, saved(),
+                                     keep_last=t.keep_last)
+
+    best_top1 = -1.0
+    i = start
+    while i < t.num_steps:
+        for batch in ds.batches(t.batch_size, tok, ctx, seed=t.seed + i):
+            state, metrics = step_fn(state, backbone, on_device(batch))
+            if i % 10 == 0:
+                m = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+                sinks.log(m, step=i)
+                log.info("step %d loss %.4f top1 %.3f", i, m["loss"],
+                         m["top1_i2a"])
+            i += 1
+            if t.val_every and val_batch is not None \
+                    and i % t.val_every == 0:
+                val = {k: float(v) for k, v in
+                       train_verifier.ensemble_eval_metrics(
+                           state.members, vcfg, backbone, val_batch).items()}
+                sinks.log({f"val/{k}": v for k, v in val.items()}, step=i)
+                log.info("step %d val top1 %.3f", i, val["top1_i2a"])
+                save(i)
+                if val["top1_i2a"] > best_top1:
+                    best_top1 = val["top1_i2a"]
+                    checkpoints.save_params(
+                        os.path.join(t.checkpoint_dir, "best"),
+                        {"members": state.members, "backbone": backbone})
+            if i >= t.num_steps:
+                break
+    save(t.num_steps)
+    # the merged ensemble in the reference schema; it reads back through
+    # convert.verifier_from_torch.convert_merged_checkpoint
+    save_merged_ensemble(os.path.join(t.checkpoint_dir, "merged_ensemble.pt"),
+                         state.members, vcfg)
+    log.info("exported merged ensemble (%d members)", t.num_members)
     sinks.close()
     log.info("done")
 
@@ -396,8 +598,7 @@ def role_eval(cfg: RunCfg, device=None):
 
 
 # the JAX package's roles this port does not have yet, and where they wait
-_NOT_PORTED = {"train_pi0fast": "A.3 e", "train_verifier": "A.3 c",
-               "bench": "A.6"}
+_NOT_PORTED = {"bench": "A.6"}
 
 
 def main(argv=None, device=None):
@@ -418,8 +619,9 @@ def main(argv=None, device=None):
         raise SystemExit(
             f"role {cfg.role!r} is not ported to the PyTorch port yet "
             f"(ROADMAP {_NOT_PORTED[cfg.role]}); ported roles: train, "
-            "serve_policy, eval")
-    role = {"train": role_train, "serve_policy": role_serve,
+            "train_pi0fast, train_verifier, serve_policy, eval")
+    role = {"train": role_train, "train_pi0fast": role_train_pi0fast,
+            "train_verifier": role_train_verifier, "serve_policy": role_serve,
             "eval": role_eval}.get(cfg.role)
     if role is None:
         raise SystemExit(

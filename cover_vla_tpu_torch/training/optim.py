@@ -237,6 +237,27 @@ def apply_updates(params: Leaves, updates: Leaves) -> None:
         params[k].add_(u.to(params[k].dtype))
 
 
+def grad_step(tx: GradientTransformation, opt_state: dict, leaves: Leaves,
+              loss_fn) -> Tuple[torch.Tensor, dict, Leaves, dict]:
+    """One optimizer step: differentiate `loss_fn() -> (loss, aux)` with
+    respect to `leaves` (marked requires_grad here), then apply `tx`'s
+    update to them in place. A leaf the loss does not reach gets a zero
+    gradient. Returns (loss detached, aux, gradients, new optimizer
+    state)."""
+    for v in leaves.values():
+        v.requires_grad_(True)
+    with torch.enable_grad():
+        loss, aux = loss_fn()
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+             for k, g in zip(leaves, grads)}
+    with torch.no_grad():
+        updates, opt_state = tx.update(grads, opt_state, leaves)
+        apply_updates(leaves, updates)
+    return loss.detach(), aux, grads, opt_state
+
+
 def make_adamw(lr_schedule, weight_decay: float = 1e-10, b1: float = 0.9,
                b2: float = 0.95, eps: float = 1e-8, grad_clip: float = 1.0,
                accumulate_steps: int = 1) -> GradientTransformation:

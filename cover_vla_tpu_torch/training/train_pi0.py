@@ -112,19 +112,11 @@ def loss_fn(params, cfg: Pi0Config, generator: Optional[torch.Generator],
 
 def _step(state, tx, cfg: Pi0Config, names, generator, batch, noise, time):
     leaves = flatten(state.params)
-    train = {k: leaves[k].requires_grad_(True) for k in names}
-    with torch.enable_grad():
-        loss, _ = loss_fn(state.params, cfg, generator, batch, noise, time)
-        grads = torch.autograd.grad(loss, list(train.values()),
-                                    allow_unused=True)
     # a leaf the loss does not reach (PaliGemma's final norm) gets zeros
-    grads = {k: torch.zeros_like(train[k]) if g is None else g
-             for k, g in zip(train, grads)}
-    with torch.no_grad():
-        metrics = {"loss": loss.detach(),
-                   "grad_norm": optim.global_norm(grads)}
-        updates, opt_state = tx.update(grads, state.opt_state, train)
-        optim.apply_updates(train, updates)
+    loss, _, grads, opt_state = optim.grad_step(
+        tx, state.opt_state, {k: leaves[k] for k in names},
+        lambda: loss_fn(state.params, cfg, generator, batch, noise, time))
+    metrics = {"loss": loss, "grad_norm": optim.global_norm(grads)}
     return type(state)(state.params, opt_state, state.step + 1), metrics
 
 

@@ -1,7 +1,8 @@
 """Package boundary of the PyTorch port: it imports neither jax nor the
-JAX package (nor safetensors or ml_dtypes, which a CUDA installation need
-not have; yaml only where a YAML file is read), and its entry points do
-not fall back to the CPU silently."""
+JAX package (nor safetensors, ml_dtypes, PIL or tensorflow, which a CUDA
+installation need not have; yaml only where a YAML file is read, PIL
+only where an encoded image is read), and its entry points do not fall
+back to the CPU silently."""
 
 import os
 import pkgutil
@@ -48,11 +49,14 @@ def test_every_module_imports_without_jax():
                  "utils.geometry", "utils.metrics_sink", "utils.monitor",
                  "utils.tree", "run", "training", "training.optim",
                  "training.quantized_optim", "training.train_pi0",
-                 "training.validation", "data.pipeline", "data.augment"):
+                 "training.validation", "data.pipeline", "data.augment",
+                 "training.train_verifier", "training.train_pi0fast",
+                 "eval.verifier_retrieval", "data.bridge_verifier_dataset",
+                 "data.rlds"):
         assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
             "for m in ('jax', 'cover_vla_tpu', 'safetensors', 'ml_dtypes',\n"
-            "          'yaml'):\n"
+            "          'yaml', 'PIL', 'tensorflow'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"

@@ -78,8 +78,7 @@ def test_cli_rejects_unknown():
             parse_fn(cls, ["--nonexistent.option", "3"])
 
 
-@pytest.mark.parametrize("role", ["train_pi0fast", "train_verifier",
-                                  "bench"])
+@pytest.mark.parametrize("role", ["bench"])
 def test_unported_roles_stop(role):
     with pytest.raises(SystemExit, match="not ported"):
         run.main(["--role", role])

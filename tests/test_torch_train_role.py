@@ -1,8 +1,8 @@
 """The `train` role of the port's run.py at tiny size on the CPU: the npz
 trajectory set of the JAX package's own role test, checkpoints under
 step_<N>/, metrics.jsonl, a resume that continues from the saved state,
-and the launches that still stop (rlds data, several processes, no
-device)."""
+and the launches that still stop (several processes, no device, an rlds
+directory without shards)."""
 
 import json
 import os
@@ -126,7 +126,9 @@ def test_cli_names_the_device(tmp_path):
 
 def test_role_train_stops_where_the_port_ends(tmp_path, monkeypatch):
     ds = _dataset(tmp_path / "ds")
-    with pytest.raises(SystemExit, match="A.3 f"):
+    # rlds data is read (tests/test_torch_rlds.py); a directory without
+    # shards is refused
+    with pytest.raises(FileNotFoundError, match="tfrecord"):
         run.main(_argv(ds, str(tmp_path / "ck"), 1,
                        "--train.data_format", "rlds"), device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
