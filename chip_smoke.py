@@ -87,6 +87,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      (PaliGemma-2B + so400m, the whole tree, B = 8) under AdamW and 8-bit
      AdamW; run.main --role train_pi0fast over a raw-image RLDS shard with
      a resume, the restored states bit-equal.
+ 10. multi-process, at world size 1 over NCCL (one card; a FileStore
+     rendezvous) on a ('dp', 'fsdp') = (1, 1) mesh: make_verified_step_sharded
+     at E16_N16_K1 and E1_N5_K8 under the fast and all-kernel configs,
+     every field bit-equal to the batched step (the noise given, and
+     drawn from one seed), launches 180/75/18 (0 prefill launches under
+     fast), p50 in turns with the batched step; the FSDP expert-only π0
+     step (8-bit AdamW, B = 32) in turns with the unsharded step from the
+     same seed's state, 6 steps bit-equal (losses, grad norms, every
+     parameter and int8 grid entry), step times, card peaks and the
+     collectives' device time from a profile; the DDP verifier ensemble
+     step (kernel config, B = 32) in turns with the unsharded one, K2 48
+     launches a step, metrics and members bit-equal; one FSDP π0-FAST step
+     (whole tree, 8-bit AdamW, B = 8) bit-equal to the unsharded one;
+     `python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+     cover_vla_tpu_torch.run --role train` at full width for 3 steps and a
+     resume, the re-saved state byte-equal to the saved one; and the
+     2-process gloo parity of the tiny π0's FSDP steps on the machine's
+     CPU (this script run as `--gloo-rank`), within the CPU tests' bounds.
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -726,8 +744,11 @@ def profile_step(torch, card, cell, run, label="fast"):
         f"{sum(c for _, c in gemm)} launches | {card}")
     for name, (t_us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {t_us / 1e3:9.3f} ms  {count:6d}x  {name[:90]}")
+    nccl = [(t, c) for name, (t, c) in by_name.items()
+            if re.search(r"nccl", name, re.I)]
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, ops=len(events),
-                gemm_ms=gemm_ms)
+                gemm_ms=gemm_ms, nccl_ms=sum(t for t, _ in nccl) / 1e3,
+                nccl_launches=sum(c for _, c in nccl))
 
 
 def init_full_width(torch, dev, pcfg, vcfg):
@@ -3220,6 +3241,492 @@ def training_phase_9(torch, card, dev):
     fast_train_entry_point(torch, card, dev, fcfg)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multi-process (parallel/*, the sharded step, FSDP / DDP,
+# torchrun launches)
+# ---------------------------------------------------------------------------
+
+# the 2-process gloo parity on the host's CPU: tests/test_torch_training.py's
+# shares, after the third 8-bit step tests/test_torch_train_pi0fast.py's
+LATE_8BIT_SHARE = 5e-2
+
+
+def state_mismatches(torch, got: dict, want: dict, where: str = "") -> list:
+    """The paths at which two trees of tensors differ in any bit."""
+    out = []
+    for k in want:
+        if isinstance(want[k], torch.Tensor):
+            if not torch.equal(got[k].detach(), want[k].detach()):
+                out.append(f"{where}/{k}")
+        else:
+            out += state_mismatches(torch, got[k], want[k], f"{where}/{k}")
+    return out
+
+
+def gathered(state) -> dict:
+    """A sharded train state's whole parameters (flat) and optimizer
+    state, gathered by every rank."""
+    from cover_vla_tpu_torch.parallel.mesh import (
+        gather_tensor, map_shards, shard_plan)
+    from cover_vla_tpu_torch.utils.tree import flatten
+    plan = shard_plan(state.params)
+    return {"params": flatten(map_shards(state.params, plan, gather_tensor)),
+            "opt_state": map_shards(state.opt_state, plan, gather_tensor)}
+
+
+def sharded_step_phase(torch, card, dev, pcfg, vcfg, mesh, cells,
+                       repeats=STEP_REPEATS):
+    """10.1: make_verified_step_sharded at world size 1 against
+    make_verified_step_batched on phase 4's weights and inputs, under the
+    fast and all-kernel configs: every field bit-equal (the noise given,
+    and drawn from one seed), launches per step, p50 in turns."""
+    from cover_vla_tpu_torch.data.stats import DatasetStatistics
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_verified_step_batched, make_verified_step_sharded)
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    pp, vp = init_full_width(torch, dev, pcfg, vcfg)
+    stats = DatasetStatistics.from_json()
+    attn = kernel_configs(pcfg, vcfg)
+    expected = {"all_kernel": launches_per_step(pcfg, vcfg)}
+    expected["fast"] = {**expected["all_kernel"], "prefix_gqa": 0}
+    for cell, (e, ccfg) in cells.items():
+        inputs, noise_np = episode_inputs(pcfg, vcfg, ccfg, e, seed=0)
+        noise = torch.from_numpy(noise_np).to(dev)
+        for a in ("fast", "all_kernel"):
+            pc, vc = attn[a]
+            steps = {"batched": make_verified_step_batched(
+                         pc, vc, ccfg, stats, device=dev),
+                     "sharded": make_verified_step_sharded(
+                         pc, vc, ccfg, stats, mesh, device=dev)}
+            res = {}
+            for name, step in steps.items():
+                ca.reset_launch_counts()
+                res[name] = step(pp, vp, *inputs, noise=noise)
+                torch.cuda.synchronize()
+                counts = dict(ca.launch_counts)
+                if counts != expected[a]:
+                    raise AssertionError(f"{cell} {a} {name}: launch counts "
+                                         f"{counts}, expected {expected[a]}")
+            drawn = {name: step(pp, vp, *inputs, generator=torch.Generator(
+                device=dev).manual_seed(21)) for name, step in steps.items()}
+            for got, want, what in ((res["sharded"], res["batched"],
+                                     "noise given"),
+                                    (drawn["sharded"], drawn["batched"],
+                                     "noise drawn")):
+                check_result(torch, got, e, ccfg.n_rephrases, ccfg.n_samples,
+                             pcfg.chunk_size)
+                bad = state_mismatches(torch, got._asdict(), want._asdict())
+                if bad:
+                    raise AssertionError(f"{cell} {a} sharded vs batched "
+                                         f"({what}): {bad}")
+            times = {name: [] for name in steps}
+            for i in range(repeats):     # in turns, the first alternating
+                for name in (("batched", "sharded") if i % 2 == 0
+                             else ("sharded", "batched")):
+                    t0 = time.perf_counter()
+                    steps[name](pp, vp, *inputs, noise=noise)
+                    torch.cuda.synchronize()
+                    times[name].append(time.perf_counter() - t0)
+            p50 = {n: float(np.median(t)) * 1e3 for n, t in times.items()}
+            log(f"sharded step {cell} {a}: world size 1 (mesh "
+                f"{tuple(mesh.shape)}), every field bit-equal to the batched "
+                f"step (noise given and drawn), launches {expected[a]} a "
+                f"step; p50 sharded {p50['sharded']:.2f} ms (min "
+                f"{min(times['sharded']) * 1e3:.2f}), batched "
+                f"{p50['batched']:.2f} ms (min "
+                f"{min(times['batched']) * 1e3:.2f}), in turns, "
+                f"sharded / batched {p50['sharded'] / p50['batched']:.3f} | "
+                f"{card}")
+    del pp, vp
+
+
+def fsdp_train_phase(torch, card, dev, cfg, mesh, b=32, n=6):
+    """10.2: the FSDP expert-only π0 step (8-bit AdamW, B = 32) at world
+    size 1 against the unsharded step from the same seed's state and the
+    same batches, in turns: loss, grad norm and (after the last step)
+    every parameter and optimizer entry bit-equal; step times, card peaks,
+    the collectives' device time from a profile."""
+    import gc
+    from cover_vla_tpu_torch.training import optim, train_pi0
+
+    batch = to_device(torch, train_batch(np.random.default_rng(9), cfg, b,
+                                         pad_rows=4), dev)
+    schedule = optim.warmup_cosine(5e-5, 100, 1000)
+    runs = {}
+    for name, m in (("unsharded", None), ("fsdp", mesh)):
+        tx = train_pi0.make_optimizer(schedule, optimizer="adamw_8bit")
+        state, mask = train_pi0.init_partitioned_train_state(
+            7, cfg, tx, mesh=m, device=dev)
+        runs[name] = [state, train_pi0.make_partitioned_train_step(
+            cfg, tx, mask, mesh=m), [], [], []]
+    for i in range(n):
+        for name in (("unsharded", "fsdp") if i % 2 == 0
+                     else ("fsdp", "unsharded")):
+            run = runs[name]
+            gen = torch.Generator(device=dev).manual_seed(100 + i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run[0], met = run[1](run[0], gen, batch)
+            torch.cuda.synchronize()
+            run[2].append(time.perf_counter() - t0)
+            run[3].append(torch.cuda.max_memory_allocated() / 1e9)
+            run[4].append((met["loss"].item(), met["grad_norm"].item()))
+    u, f = runs["unsharded"], runs["fsdp"]
+    if u[4] != f[4]:
+        raise AssertionError(f"FSDP vs unsharded (loss, grad norm): {f[4]} "
+                             f"vs {u[4]}")
+    got = gathered(f[0])
+    from cover_vla_tpu_torch.utils.tree import flatten
+    bad = (state_mismatches(torch, got["params"], flatten(u[0].params))
+           + state_mismatches(torch, got["opt_state"], u[0].opt_state))
+    if bad:
+        raise AssertionError(f"FSDP vs unsharded state after {n} steps: "
+                             f"{bad[:8]}")
+    held = [f[0]]
+
+    def one_step():
+        held[0], _ = f[1](held[0], torch.Generator(device=dev)
+                          .manual_seed(300), batch)
+    prof = profile_step(torch, card, f"FSDP train B={b}", one_step,
+                        label="adamw_8bit expert-only, world size 1")
+    for name, run in runs.items():
+        log(f"FSDP train step {name} adamw_8bit expert-only B={b}: median of "
+            f"steps 2-{n} {np.median(run[2][1:]) * 1e3:.1f} ms (steps "
+            f"{[round(x * 1e3, 1) for x in run[2]]} ms, in turns), card peak "
+            f"{max(run[3]):.2f} GB | {card}")
+    log(f"FSDP train: {n} steps at world size 1 bit-equal to the unsharded "
+        f"steps (losses {[round(x[0], 5) for x in f[4]]}, every parameter "
+        f"and int8 grid entry); collectives {prof['nccl_ms']:.3f} ms of "
+        f"device time in {prof['nccl_launches']} launches a step, device "
+        f"busy share {prof['busy_ms'] / prof['wall_ms']:.3f} | {card}")
+    del runs, u, f, held, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ddp_verifier_phase(torch, card, dev, vcfg, mesh, b=32, n=4):
+    """10.3: the DDP ensemble step at world size 1 under the kernel config
+    against the unsharded step from the same members, in turns: K2's
+    launches, every metric and member bit-equal, step times."""
+    from cover_vla_tpu_torch.configs import fast_verifier_config
+    from cover_vla_tpu_torch.models import verifier
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.training import optim
+    from cover_vla_tpu_torch.training import train_verifier as tv
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    params = verifier.init_verifier(11, vcfg, 3, device=dev)
+    kcfg = fast_verifier_config(vcfg)
+    batch = to_device(torch, verifier_batch(np.random.default_rng(93), vcfg,
+                                            b), dev)
+    runs = {}
+    for name, m in (("unsharded", None), ("ddp", mesh)):
+        members = fresh_tree(torch, params["members"], dev)
+        leaves = flatten(members)
+        for v in leaves.values():
+            v.requires_grad_(True)
+        tx = optim.make_adamw(optim.linear_warmup(5e-5, 100))
+        runs[name] = [tv.VerifierTrainState(members, tx.init(leaves),
+                                            optim.counter()),
+                      tv.make_ensemble_train_step(kcfg, tx, mesh=m), [], []]
+    for i in range(n):
+        for name in (("unsharded", "ddp") if i % 2 == 0
+                     else ("ddp", "unsharded")):
+            run = runs[name]
+            ca.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run[0], met = run[1](run[0], params["backbone"], batch)
+            torch.cuda.synchronize()
+            run[2].append(time.perf_counter() - t0)
+            if ca.launch_counts["mha_dense"] != verifier_k2(vcfg):
+                raise AssertionError(f"{name}: K2 launches "
+                                     f"{dict(ca.launch_counts)}")
+            run[3].append(met)
+        bad = state_mismatches(torch, runs["ddp"][3][-1],
+                               runs["unsharded"][3][-1])
+        bad += state_mismatches(torch, flatten(runs["ddp"][0].members),
+                                flatten(runs["unsharded"][0].members))
+        if bad:
+            raise AssertionError(f"DDP vs unsharded after step {i + 1}: {bad}")
+    for name, run in runs.items():
+        log(f"DDP verifier train step {name} (kernel config, B={b}): median "
+            f"of steps 2-{n} {np.median(run[2][1:]) * 1e3:.1f} ms (steps "
+            f"{[round(x * 1e3, 1) for x in run[2]]} ms, in turns), K2 "
+            f"{verifier_k2(vcfg)} launches a step | {card}")
+    log(f"DDP verifier train: {n} steps at world size 1, every metric and "
+        f"member bit-equal to the unsharded steps, losses "
+        f"{[round(m['loss'].item(), 5) for m in runs['ddp'][3]]}")
+
+
+def fsdp_fast_phase(torch, card, dev, cfg, mesh, b=8):
+    """10.4: one FSDP π0-FAST step (the whole tree, 8-bit AdamW, B = 8)
+    at world size 1 against the unsharded step from the same seed's
+    state: the loss and every parameter bit-equal (one state on the card
+    at a time; the unsharded result waits on the host)."""
+    import gc
+    from cover_vla_tpu_torch.training import optim, train_pi0, train_pi0fast
+    from cover_vla_tpu_torch.utils.tree import flatten
+
+    batch = to_device(torch, fast_batch(np.random.default_rng(97), cfg, b),
+                      dev)
+    out = {}
+    for name, m in (("unsharded", None), ("fsdp", mesh)):
+        tx = train_pi0.make_optimizer(optim.warmup_cosine(5e-5, 100, 1000),
+                                      optimizer="adamw_8bit")
+        state = train_pi0fast.init_train_state(8, cfg, tx, mesh=m,
+                                               device=dev)
+        step = train_pi0fast.make_train_step(cfg, tx, mesh=m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        params = (gathered(state)["params"] if m is not None
+                  else flatten(state.params))
+        if name == "unsharded":
+            out["params"] = {k: v.detach().cpu() for k, v in params.items()}
+        else:
+            bad = [k for k, v in params.items()
+                   if not torch.equal(v.detach().cpu(), out["params"][k])]
+            if bad or met["loss"].item() != out["loss"]:
+                raise AssertionError(f"π0-FAST FSDP vs unsharded: loss "
+                                     f"{met['loss'].item()} vs {out['loss']},"
+                                     f" leaves {bad[:8]}")
+        out["loss"] = met["loss"].item()
+        log(f"π0-FAST train step {name} adamw_8bit whole tree B={b}: first "
+            f"step {secs * 1e3:.1f} ms, card peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, loss "
+            f"{out['loss']:.5f} | {card}")
+        del state, step, tx, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"π0-FAST FSDP: one step at world size 1 bit-equal to the unsharded "
+        f"step ({len(out['params'])} leaves and the loss)")
+
+
+def torchrun_phase(torch, card, tiny=False, b=16):
+    """10.5: `python -m torch.distributed.run --standalone --nproc_per_node
+    1 -m cover_vla_tpu_torch.run --role train` at full width (8-bit, 3
+    steps), then resumed: the re-saved state byte-equal to the saved
+    one."""
+    import filecmp
+    import shutil
+    import tempfile
+    from cover_vla_tpu_torch.convert import checkpoints
+
+    tmp = tempfile.mkdtemp(prefix="cvla_torchrun_")
+    try:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ck")
+        write_trajectories(data, hw=224)
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m", "cover_vla_tpu_torch.run",
+                "--role", "train", "--train.tiny", str(tiny).lower(),
+                "--train.dataset_dir", data, "--train.checkpoint_dir", ck,
+                "--train.batch_size", str(b), "--train.num_steps", "3",
+                "--train.optimizer", "adamw_8bit"]
+        if tiny:
+            argv += ["--device", "cpu"]
+        secs = []
+        for extra in ([], ["--train.resume", "true"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv + extra, capture_output=True,
+                                  text=True, timeout=600,
+                                  cwd=os.path.dirname(os.path.abspath(
+                                      __file__)))
+            secs.append(time.perf_counter() - t0)
+            if proc.returncode:
+                raise AssertionError(f"torchrun exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-3000:]}\n"
+                                     f"{proc.stderr[-6000:]}")
+            path = checkpoints.latest_checkpoint(ck)
+            assert os.path.basename(path) == "step_00000003", path
+            f = os.path.join(path, checkpoints.BLOB_NAME)
+            if not extra:
+                first = os.path.join(tmp, "first.blob")
+                os.link(f, first)      # the resume replaces the file
+        if not filecmp.cmp(first, f, shallow=False):
+            raise AssertionError("the resumed run's state differs from the "
+                                 "saved one")
+        with open(os.path.join(ck, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        assert [r["_step"] for r in recs] == [0], recs
+        log(f"torchrun --nproc_per_node 1 run.main --role train "
+            f"({'tiny' if tiny else 'full'} width, NCCL world size 1, "
+            f"adamw_8bit, B={b}): 3 steps and a save {secs[0]:.1f} s, the "
+            f"resume {secs[1]:.1f} s; the re-saved state "
+            f"({os.path.getsize(f) / 1e9:.2f} GB) byte-equal to the saved "
+            f"one; metrics.jsonl {len(recs)} record, loss "
+            f"{recs[0]['loss']:.5f} | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gloo_parity_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of 10.6 (CPU, gloo): the tiny π0's partitioned FSDP steps
+    at dp=1 x fsdp=world (every leaf of 256 elements and more sharded),
+    AdamW and 8-bit AdamW, 3 steps; rank 0 also runs the unsharded steps
+    and writes the deviations."""
+    import torch
+    torch.set_num_threads(2)
+    from cover_vla_tpu_torch.configs import replace, tiny_pi0_config
+    from cover_vla_tpu_torch.models import pi0
+    from cover_vla_tpu_torch.models.params import ParamTree
+    from cover_vla_tpu_torch.parallel import distributed
+    from cover_vla_tpu_torch.parallel.mesh import (
+        fsdp_sharding, make_mesh, shard_params)
+    from cover_vla_tpu_torch.training import optim, train_pi0
+    from cover_vla_tpu_torch.utils.tree import flatten, unflatten
+
+    distributed.init_multihost(f"file://{store}", world, rank, device="cpu")
+    try:
+        cfg = replace(tiny_pi0_config(), compute_dtype="float32")
+        base = pi0.init_pi0(0, cfg, device="cpu")
+        rng = np.random.default_rng(8)
+        batch = to_device(torch, train_batch(rng, cfg, 4), "cpu")
+        kw = {"noise": torch.from_numpy(rng.standard_normal(
+                  (4, cfg.chunk_size, cfg.max_action_dim)).astype(np.float32)),
+              "time": torch.from_numpy(rng.uniform(0.001, 1.0, (4,))
+                                       .astype(np.float32))}
+        mesh = make_mesh(dp=1, fsdp=world)
+        result = {}
+        for opt in ("adamw", "adamw_8bit"):
+            runs = {}
+            for m in (mesh, None) if rank == 0 else (mesh,):
+                tree = ParamTree(unflatten({k: v.detach().float().clone()
+                                            for k, v in flatten(base).items()}))
+                tx = train_pi0.make_optimizer(
+                    optim.warmup_cosine(1e-3, 1, 20), optimizer=opt)
+                mask = train_pi0.freeze_mask(tree)
+                if m is None:
+                    state = train_pi0.init_partitioned_state(tree, tx, mask)
+                else:
+                    params = shard_params(tree, fsdp_sharding(
+                        tree, m, min_size=256))
+                    mk = flatten(mask)
+                    state = train_pi0.PartitionedTrainState(
+                        params, tx.init({k: v for k, v in
+                                         flatten(params).items() if mk[k]}),
+                        optim.counter())
+                step = train_pi0.make_partitioned_train_step(cfg, tx, mask,
+                                                             mesh=m)
+                per = []
+                for _ in range(3):
+                    state, met = step(state, None, batch, **kw)
+                    params = (gathered(state)["params"] if m is not None
+                              else flatten(state.params))
+                    per.append((met["loss"].item(),
+                                {k: v.detach().clone()
+                                 for k, v in params.items()}))
+                runs["fsdp" if m is not None else "plain"] = per
+            if rank == 0:
+                dev_steps = []
+                for (lf, pf), (lp, pp) in zip(runs["fsdp"], runs["plain"]):
+                    d = torch.cat([(pf[k] - pp[k]).abs().reshape(-1)
+                                   for k in pp])
+                    dev_steps.append({
+                        "loss_rel": abs(lf - lp) / abs(lp),
+                        "share": (d > TRAIN_PARAM_ATOL).float().mean().item(),
+                        "max": d.max().item()})
+                result[opt] = dev_steps
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(result, f)
+    finally:
+        distributed.shutdown()
+
+
+def gloo_parity_phase(world=2, timeout=300):
+    """10.6: the 2-process gloo parity of the tiny π0 FSDP steps on this
+    machine's CPU (the card machine has one GPU; NCCL takes one device per
+    rank)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="cvla_gloo_")
+    out = os.path.join(tmp, "result.json")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+         str(world), os.path.join(tmp, "store"), out], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [f"rank {r} exited {p.returncode}:\n{o[-3000:]}"
+           for r, (p, o) in enumerate(zip(procs, logs)) if p.returncode]
+    if bad:
+        raise AssertionError("gloo parity: " + "\n".join(bad))
+    with open(out) as f:
+        result = json.load(f)
+    for opt, steps in result.items():
+        for i, s in enumerate(steps):
+            share = (LATE_8BIT_SHARE if opt == "adamw_8bit" and i == 2
+                     else TRAIN_SHARE[opt])
+            rel = 1e-3 if opt == "adamw_8bit" and i else 1e-4
+            ok = s["share"] <= share and s["loss_rel"] <= rel and (
+                opt != "adamw" or s["max"] <= 1e-4)
+            if not ok:
+                raise AssertionError(f"gloo parity {opt} step {i + 1}: {s}")
+    log(f"gloo parity (this machine's CPU, {world} processes, FileStore): "
+        f"tiny π0 partitioned FSDP steps vs unsharded, 3 steps each of adamw "
+        f"and adamw_8bit within the CPU tests' bounds: "
+        f"{ {o: [(round(s['loss_rel'], 8), round(s['share'], 5)) for s in st] for o, st in result.items()} }"
+        f" (loss rel, share of parameters beyond {TRAIN_PARAM_ATOL:g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def multiprocess_phase(torch, card, dev):
+    """Phase 10 at world size 1 over NCCL (one card), full width."""
+    import gc
+    import tempfile
+    from cover_vla_tpu_torch.configs import (
+        CoVerConfig, Pi0Config, VerifierConfig)
+    from cover_vla_tpu_torch.models.pi0fast import Pi0FastConfig
+    from cover_vla_tpu_torch.parallel import distributed
+    from cover_vla_tpu_torch.parallel.mesh import make_mesh
+
+    tmp = tempfile.mkdtemp(prefix="cvla_store_")
+    distributed.init_multihost(f"file://{tmp}/store", 1, 0, device=dev)
+    try:
+        mesh = make_mesh()
+        log(f"phase 10: process group {torch.distributed.get_backend()}, "
+            f"world size {distributed.world_size()}, mesh "
+            f"{tuple(mesh.shape)} {mesh.mesh_dim_names}")
+        pcfg, vcfg = Pi0Config(), VerifierConfig()
+        cells = {"E16_N16_K1": (16, CoVerConfig(n_samples=16, n_rephrases=1)),
+                 "E1_N5_K8": (1, CoVerConfig(n_samples=5, n_rephrases=8))}
+        t0 = time.perf_counter()
+        sharded_step_phase(torch, card, dev, pcfg, vcfg, mesh, cells)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 10.1 sharded step: wall {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fsdp_train_phase(torch, card, dev, pcfg, mesh)
+        ddp_verifier_phase(torch, card, dev, vcfg, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fsdp_fast_phase(torch, card, dev, Pi0FastConfig(), mesh)
+        log(f"phase 10.2-10.4 FSDP / DDP steps: wall "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        distributed.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torchrun_phase(torch, card)
+    gloo_parity_phase()
+    log(f"phase 10.5-10.6 torchrun, gloo: wall "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3308,6 +3815,12 @@ def main() -> int:
     training_phase_9(torch, card, dev)
     log(f"phase 9 verifier and π0-FAST training: wall "
         f"{time.perf_counter() - t0:.1f} s")
+    # phase 10: multi-process -------------------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    multiprocess_phase(torch, card, dev)
+    log(f"phase 10 multi-process: wall {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",
@@ -3343,4 +3856,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:     # a rank of phase 10.6
+        gloo_parity_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -18,6 +18,13 @@ Replaces the reference's three checkpoint families:
   * weights-only exports,
   * rotation keeping the last K (the verifier trainer's
     manage_checkpoints).
+
+A sharded train state (`parallel/mesh.py`: its parameter tree carries a
+shard plan) is saved in the layout a single process writes: every rank
+joins the gather of the whole leaves, rank 0 alone writes, and then every
+rank passes a barrier. Restoring reads the file on every rank and keeps
+the rank's shard, so a state saved at one world size restores at
+another.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import torch
 from cover_vla_tpu_torch.convert import blob
 from cover_vla_tpu_torch.device import resolve_device
 from cover_vla_tpu_torch.models.params import ParamTree
+from cover_vla_tpu_torch.parallel.distributed import barrier, rank
+from cover_vla_tpu_torch.parallel.mesh import (
+    gather_tensor, map_shards, node_spec, shard_plan, shard_tensor)
 
 BLOB_NAME = "params.blob"
 # files an orbax PyTreeCheckpointer directory holds
@@ -97,37 +107,62 @@ def _as_tree(state: Any):
     return state._asdict() if hasattr(state, "_asdict") else state
 
 
-def _copy_into(target, tree, where: str = "") -> None:
+def _state_plan(state):
+    """The shard plan of a train state's sharded parameter tree, if any."""
+    for value in _as_tree(state).values():
+        if shard_plan(value) is not None:
+            return shard_plan(value)
+    return None
+
+
+def _copy_into(target, tree, where: str = "", plan=None, spec=None,
+               path: str = "") -> None:
     """Copy every leaf of `tree` into the tensor at the same key of
     `target`, in place (cast to the target's dtype). Both must hold the
     same leaves with the same shapes; an empty node of `target` (an
-    optimizer part without state) has no entry in a blob."""
+    optimizer part without state) has no entry in a blob. With `plan`,
+    a tensor under a sharded leaf's name takes this rank's part of the
+    whole-layout tensor; the top level's keys are the state's fields."""
     extra = [k for k in tree if k not in target]
     if extra:
         raise KeyError(f"checkpoint has unexpected entries under "
                        f"{where or '/'}: {extra}")
     for key in target:
         value, here = target[key], f"{where}/{key}"
+        node = "" if not where else f"{path}.{key}" if path else key
+        s = spec or (node_spec(plan, node, key) if plan and where else None)
         if isinstance(value, torch.Tensor):
             if key not in tree or isinstance(tree[key], dict):
                 raise KeyError(f"checkpoint lacks the tensor {here}")
-            if tuple(tree[key].shape) != tuple(value.shape):
+            src = tree[key]
+            if s is not None:
+                src = shard_tensor(src, s, value.shape)
+            if tuple(src.shape) != tuple(value.shape):
                 raise ValueError(f"{here}: checkpoint shape "
-                                 f"{tuple(tree[key].shape)}, state shape "
+                                 f"{tuple(src.shape)}, state shape "
                                  f"{tuple(value.shape)}")
             with torch.no_grad():
-                value.copy_(tree[key])
+                value.copy_(src)
         else:
-            _copy_into(value, tree.get(key, {}), here)
+            _copy_into(value, tree.get(key, {}), here, plan, s, node)
 
 
 def save_train_state(root: str, step: int, state: Any,
                      keep_last: int = 3) -> str:
     """Save under root/step_<N>/ and rotate old checkpoints. `state` is a
-    train state or a parameter tree."""
+    train state or a parameter tree. In a multi-process run every rank
+    calls it: the whole leaves of a sharded state are gathered, rank 0
+    writes, and the call returns once every rank has passed a barrier."""
     path = os.path.join(os.path.abspath(root), f"step_{step:08d}")
-    save_params(path, _as_tree(state))
-    rotate_checkpoints(root, keep_last)
+    tree, plan = _as_tree(state), _state_plan(state)
+    if plan is not None:
+        tree = {k: v if isinstance(v, torch.Tensor)
+                else map_shards(v, plan, gather_tensor)
+                for k, v in tree.items()}
+    if rank() == 0:
+        save_params(path, tree)
+        rotate_checkpoints(root, keep_last)
+    barrier("save_train_state")
     return path
 
 
@@ -170,7 +205,8 @@ def restore_train_state(root: str, target: Any,
     """Resume from the latest checkpoint; returns (state, step). Without
     a checkpoint, (target, 0). A train state `target` is restored in
     place (its tensors keep their devices and requires_grad flags) and
-    continues as the saved state would have; a parameter tree is loaded
+    continues as the saved state would have (a sharded state keeps this
+    rank's shards of the saved whole leaves); a parameter tree is loaded
     as a new ParamTree on `device`."""
     path = latest_checkpoint(root)
     if path is None:
@@ -180,6 +216,7 @@ def restore_train_state(root: str, target: Any,
         f = os.path.join(path, BLOB_NAME)
         if not os.path.isfile(f):
             raise FileNotFoundError(f"no {BLOB_NAME} checkpoint at {path!r}")
-        _copy_into(_as_tree(target), blob.load_tree(f))
+        _copy_into(_as_tree(target), blob.load_tree(f),
+                   plan=_state_plan(target))
         return target, step
     return load_params(path, target=target, device=device), step

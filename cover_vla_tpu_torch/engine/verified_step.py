@@ -23,6 +23,8 @@ argument has a leading E axis):
 Stages 1-5 are also exposed alone (`make_propose_step_batched`) with the
 selection half over an externally supplied score vector
 (`make_select_step_batched`): the injected-score selection mode.
+`make_verified_step_sharded` splits the episodes over the processes of a
+mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from cover_vla_tpu_torch.ops.image import (
     resize_bicubic_pil, resize_bilinear_tf_antialias,
     resize_lanczos4_uint8_device)
 from cover_vla_tpu_torch.ops.sampling import sample_noise
+from cover_vla_tpu_torch.parallel.mesh import batch_sharding, gather_rows
 from cover_vla_tpu_torch.utils.geometry import euler_to_rotvec
 
 
@@ -225,7 +228,8 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
 
         step(policy_params, verifier_params, raw_image, proprio,
              lang_tokens, lang_masks, verifier_tokens, history,
-             history_len, noise=None, generator=None) -> VerifiedStepResult
+             history_len, noise=None, generator=None, random_winner=None)
+             -> VerifiedStepResult
 
     raw_image uint8[E, H, W, 3]; proprio fp32[E, 7] (raw euler format);
     lang_tokens/lang_masks [E, K, T] (row 0 = current task);
@@ -233,6 +237,8 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
     entries in the last history_len rows); history_len int[E].
     noise fp32[E, K, N, chunk, max_action_dim] is the flow's starting
     point; when absent it is drawn from `generator` (times noise_std).
+    random_winner int[E]: selection="random"'s picks, drawn from
+    `generator` (after the noise) when absent.
     Arrays may be numpy or tensors; they are moved to `device`.
     """
     if ccfg.selection not in ("verifier", "random", "first"):
@@ -248,7 +254,8 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
     def step(policy_params: ParamTree, verifier_params: ParamTree,
              raw_image, proprio, lang_tokens, lang_masks, verifier_tokens,
              history, history_len, noise: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None,
+             random_winner: Optional[torch.Tensor] = None
              ) -> VerifiedStepResult:
         raw_image = _as(raw_image, dev)
         proprio = _as(proprio, dev, f32)
@@ -293,8 +300,13 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
             scores = torch.zeros((E, K * N), dtype=f32, device=dev)
             max_score = torch.zeros(E, dtype=f32, device=dev)
             used_stage2 = torch.zeros(E, dtype=torch.bool, device=dev)
-            winner = zero if ccfg.selection == "first" else torch.randint(
-                0, K * N, (E,), generator=generator, device=dev)
+            if ccfg.selection == "first":
+                winner = zero
+            elif random_winner is not None:
+                winner = _as(random_winner, dev, torch.long)
+            else:
+                winner = torch.randint(0, K * N, (E,), generator=generator,
+                                       device=dev)
 
         rows = torch.arange(E, device=dev)
         exec_chunk = exec_chunks[rows, winner]
@@ -315,6 +327,54 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
             max_score=max_score, used_stage2=used_stage2,
             deferred=deferred, scores=scores,
             raw_gripper=grip[rows, winner, :, 0])
+
+    return step
+
+
+def make_verified_step_sharded(pcfg: Pi0Config, vcfg: VerifierConfig,
+                               ccfg: CoVerConfig, stats: DatasetStatistics,
+                               mesh, device=None):
+    """Episode-parallel verified step over the processes of `mesh`
+    (`parallel.make_mesh`), each on its own device (CUDA unless given);
+    the parameters are replicated (the policy fits one card; scaling is
+    along the episode axis):
+
+        step(policy_params, verifier_params, raw_image, proprio,
+             lang_tokens, lang_masks, verifier_tokens, history,
+             history_len, noise=None, generator=None) -> VerifiedStepResult
+
+    Every rank passes the full-E arguments of `make_verified_step_batched`
+    and gets the full-E result. The noise (and selection="random"'s
+    winners) are drawn for all E episodes from `generator` and then
+    sliced, so the result does not depend on the number of ranks. Rank r
+    runs the batched step on its contiguous E / W episodes; no
+    collectives run inside it, and the result's fields are all-gathered
+    after. E must be a multiple of the mesh size (else ValueError)."""
+    dev = resolve_device(device)
+    batched = make_verified_step_batched(pcfg, vcfg, ccfg, stats, device=dev)
+    rows = batch_sharding(mesh)
+    K, N = ccfg.n_rephrases, ccfg.n_samples
+
+    def step(policy_params: ParamTree, verifier_params: ParamTree,
+             raw_image, proprio, lang_tokens, lang_masks, verifier_tokens,
+             history, history_len, noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> VerifiedStepResult:
+        E = raw_image.shape[0]
+        if noise is None:
+            noise = sample_noise(
+                (E, K, N, pcfg.chunk_size, pcfg.max_action_dim),
+                ccfg.noise_std, generator=generator, device=dev)
+        winner = (torch.randint(0, K * N, (E,), generator=generator,
+                                device=dev)
+                  if ccfg.selection == "random" else None)
+        res = batched(policy_params, verifier_params,
+                      *(rows(x) for x in (raw_image, proprio, lang_tokens,
+                                          lang_masks, verifier_tokens,
+                                          history, history_len)),
+                      noise=rows(noise),
+                      random_winner=None if winner is None else rows(winner))
+        return VerifiedStepResult(*(gather_rows(t, mesh) for t in res))
 
     return step
 

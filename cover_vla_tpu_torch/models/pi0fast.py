@@ -150,13 +150,17 @@ def generate_action_tokens(params: ParamTree, cfg: Pi0FastConfig,
 def token_ce_loss(params: ParamTree, cfg: Pi0FastConfig, images: torch.Tensor,
                   img_masks: torch.Tensor, tokens: torch.Tensor,
                   pad_mask: torch.Tensor,
-                  suffix_mask: torch.Tensor) -> torch.Tensor:
+                  suffix_mask: torch.Tensor,
+                  weight_total: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Teacher-forced CE on the action-token suffix: the prefix attends
     bidirectionally, the suffix causally; targets are the next tokens, and
     the loss is the mean over positions in the suffix and not padding (the
     count clipped at 1). The LM head's logits are fp32 over the whole
     vocabulary. The prefill's attention is eager (the kernels have no
-    backward pass)."""
+    backward pass). `weight_total` replaces the count the summed losses
+    are divided by (a sharded step divides its rows' sum by the global
+    batch's count)."""
     embs, pad = embed_prefix(params, cfg, images, img_masks, tokens, pad_mask)
     n_img_tokens = embs.shape[1] - tokens.shape[1]
     b = tokens.shape[0]
@@ -174,7 +178,9 @@ def token_ce_loss(params: ParamTree, cfg: Pi0FastConfig, images: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     weight = (suffix_mask[:, 1:] & pad_mask[:, 1:]).float()
-    return (nll * weight).sum() / weight.sum().clamp_min(1.0)
+    if weight_total is None:
+        weight_total = weight.sum().clamp_min(1.0)
+    return (nll * weight).sum() / weight_total
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,23 @@ Roles ported so far:
   eval             — closed-loop CoVer evaluation on a benchmark suite
 
 The JAX package's `bench` role is not ported yet: `main` stops on it with
-SystemExit, as the training roles do on a multi-process launch. The config
-classes are the JAX package's, field for field and default for default,
-so every YAML of `config/` parses the same in both packages.
+SystemExit. The config classes are the JAX package's, field for field and
+default for default, so every YAML of `config/` parses the same in both
+packages.
+
+Multi-process: `main` makes the process group from the environment
+(`parallel.distributed.init_multihost`: torchrun's variables or the JAX
+package's) before the role runs. Each rank runs on its own device
+(`cuda:LOCAL_RANK` unless `--device` names one; `--device cpu` runs the
+ranks over gloo). With more than one process the training roles shard:
+π0 and π0-FAST over a ('dp', 'fsdp') mesh from `--train.dp` /
+`--train.fsdp` (all on fsdp by default), the verifier as DDP (dp = world
+size); every rank reads the same global batches, a batch that does not
+divide over the ranks is refused (ValueError), metrics are averaged over
+the ranks, and rank 0 alone writes the metric sinks and files.
+
+    torchrun --standalone --nproc_per_node 8 -m cover_vla_tpu_torch.run \
+        --role train --train.dataset_dir <dir> --train.batch_size 32
 
 Usage: python -m cover_vla_tpu_torch.run --role train \
        --train.dataset_dir <dir of .npz trajectories> --train.batch_size 32
@@ -140,10 +154,32 @@ def _load_trajectories(dataset_dir: str):
     return trajs
 
 
-def _one_process() -> None:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-process training is not ported yet "
-                         "(ROADMAP A.4); launch one process")
+def _train_mesh(t: TrainCfg, dp: int = 0, fsdp: int = 0):
+    """The training mesh of a multi-process run (None for one process):
+    `dp` x `fsdp` (0 = the JAX package's defaults). The global batch must
+    divide over the ranks: the JAX package would run unsharded there and
+    train each rank's copy apart."""
+    from cover_vla_tpu_torch.parallel.distributed import world_size
+    from cover_vla_tpu_torch.parallel.mesh import make_mesh
+    n = world_size()
+    if n == 1:
+        return None
+    if t.batch_size % n:
+        raise ValueError(f"--train.batch_size {t.batch_size} does not divide "
+                         f"over {n} processes")
+    return make_mesh(dp=dp or None, fsdp=fsdp or None)
+
+
+def _sinks(t: TrainCfg):
+    """The metric sinks: rank 0's; the other ranks log nowhere."""
+    from cover_vla_tpu_torch.parallel.distributed import rank
+    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
+    if rank():
+        return make_sinks()
+    return make_sinks(
+        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
+                                                   "metrics.jsonl"),
+        wandb_project=t.wandb_project or None)
 
 
 def _frame_dataset(t: TrainCfg, chunk_size: int, paraphrase=None):
@@ -186,16 +222,16 @@ def role_train(cfg: RunCfg, device=None):
     from cover_vla_tpu_torch.data.pipeline import (
         ParaphraseAugment, batcher, interleave, make_pi0_batch, prefetch)
     from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
-    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.parallel.distributed import (
+        aggregate_metrics, local_device)
+    from cover_vla_tpu_torch.parallel.mesh import gather_params
     from cover_vla_tpu_torch.training import train_pi0
     from cover_vla_tpu_torch.training.optim import warmup_cosine
     from cover_vla_tpu_torch.training.validation import validate_pi0
-    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
     from cover_vla_tpu_torch.utils.monitor import Timer, setup_logger
 
     t = cfg.train
-    _one_process()
-    dev = resolve_device(device)
+    dev = local_device(device)
     log = setup_logger("train")
     mcfg = tiny_pi0_config() if t.tiny else Pi0Config()
     tok = make_policy_tokenizer(mcfg.paligemma.vocab_size)
@@ -231,21 +267,21 @@ def role_train(cfg: RunCfg, device=None):
     def generator(seed: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(seed)
 
-    sinks = make_sinks(
-        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
-                                                   "metrics.jsonl"),
-        wandb_project=t.wandb_project or None)
+    mesh = _train_mesh(t, t.dp, t.fsdp)
+    sinks = _sinks(t)
     tx = train_pi0.make_optimizer(
         warmup_cosine(t.lr, t.warmup_steps, t.num_steps),
         optimizer=t.optimizer, accumulate_steps=t.grad_accum)
     if t.train_expert_only:
         # no gradient buffers or moments for the frozen weights
         state, mask = train_pi0.init_partitioned_train_state(
-            t.seed, mcfg, tx, device=dev)
-        step_fn = train_pi0.make_partitioned_train_step(mcfg, tx, mask)
+            t.seed, mcfg, tx, mesh=mesh, device=dev)
+        step_fn = train_pi0.make_partitioned_train_step(mcfg, tx, mask,
+                                                        mesh=mesh)
     else:
-        state = train_pi0.init_train_state(t.seed, mcfg, tx, device=dev)
-        step_fn = train_pi0.make_train_step(mcfg, tx)
+        state = train_pi0.init_train_state(t.seed, mcfg, tx, mesh=mesh,
+                                           device=dev)
+        step_fn = train_pi0.make_train_step(mcfg, tx, mesh=mesh)
     start = 0
     if t.resume:
         state, start = checkpoints.restore_train_state(t.checkpoint_dir,
@@ -265,19 +301,22 @@ def role_train(cfg: RunCfg, device=None):
     for i, frame_batch in enumerate(frames):
         if start + i >= t.num_steps:
             break
-        # one generator a step: the batch's augmentation draws, then the
-        # step's noise and flow times
+        # one generator a step, the same on every rank: the global batch's
+        # augmentation draws, then the step's noise and flow times
         gen = generator(t.seed + start + i)
         state, metrics = step_fn(state, gen, device_batch(frame_batch, gen))
         if (start + i) % 10 == 0:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = aggregate_metrics({k: float(v) for k, v in metrics.items()})
             sinks.log(m, step=start + i)
             log.info("step %d loss %.4f (%.2fs)", start + i, m["loss"],
                      timer.elapsed())
         if t.val_every and (start + i + 1) % t.val_every == 0:
-            vms = [validate_pi0(state.params, mcfg, vb, seed=vi)
+            params = gather_params(state.params)
+            vms = [validate_pi0(params, mcfg, vb, seed=vi)
                    for vi, vb in enumerate(val_set)]
-            val = {k: float(np.mean([m[k] for m in vms])) for k in vms[0]}
+            del params
+            val = aggregate_metrics({k: float(np.mean([m[k] for m in vms]))
+                                     for k in vms[0]})
             sinks.log({f"val/{k}": v for k, v in val.items()},
                       step=start + i + 1)
             log.info("step %d val %s", start + i + 1, val)
@@ -300,32 +339,30 @@ def role_train_pi0fast(cfg: RunCfg, device=None):
     from cover_vla_tpu_torch.data.fast_tokenizer import FastActionTokenizer
     from cover_vla_tpu_torch.data.pipeline import batcher, interleave, prefetch
     from cover_vla_tpu_torch.data.tokenizer import make_policy_tokenizer
-    from cover_vla_tpu_torch.device import resolve_device
     from cover_vla_tpu_torch.models.pi0fast import (
         Pi0FastConfig, tiny_pi0fast_config)
+    from cover_vla_tpu_torch.parallel.distributed import (
+        aggregate_metrics, local_device)
     from cover_vla_tpu_torch.training import train_pi0fast
     from cover_vla_tpu_torch.training.optim import warmup_cosine
     from cover_vla_tpu_torch.training.train_pi0 import make_optimizer
-    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
     from cover_vla_tpu_torch.utils.monitor import Timer, setup_logger
 
     t = cfg.train
-    _one_process()
-    dev = resolve_device(device)
+    dev = local_device(device)
     log = setup_logger("train_pi0fast")
     mcfg = tiny_pi0fast_config() if t.tiny else Pi0FastConfig()
     tok = make_policy_tokenizer(mcfg.paligemma.vocab_size)
     ds = _frame_dataset(t, mcfg.chunk_size)
     image_fn = _bilinear_image_fn(mcfg.vision.image_size)
     fast = FastActionTokenizer(time_horizon=mcfg.chunk_size, action_dim=7)
-    sinks = make_sinks(
-        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
-                                                   "metrics.jsonl"),
-        wandb_project=t.wandb_project or None)
+    mesh = _train_mesh(t, t.dp, t.fsdp)
+    sinks = _sinks(t)
     tx = make_optimizer(warmup_cosine(t.lr, t.warmup_steps, t.num_steps),
                         optimizer=t.optimizer, accumulate_steps=t.grad_accum)
-    state = train_pi0fast.init_train_state(t.seed, mcfg, tx, device=dev)
-    step_fn = train_pi0fast.make_train_step(mcfg, tx)
+    state = train_pi0fast.init_train_state(t.seed, mcfg, tx, mesh=mesh,
+                                           device=dev)
+    step_fn = train_pi0fast.make_train_step(mcfg, tx, mesh=mesh)
     start = 0
     if t.resume:
         state, start = checkpoints.restore_train_state(t.checkpoint_dir,
@@ -346,7 +383,7 @@ def role_train_pi0fast(cfg: RunCfg, device=None):
         batch["images"] = image_fn(imgs)[:, None]
         state, metrics = step_fn(state, batch)
         if (start + i) % 10 == 0:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = aggregate_metrics({k: float(v) for k, v in metrics.items()})
             sinks.log(m, step=start + i)
             log.info("step %d loss %.4f (%.2fs)", start + i, m["loss"],
                      timer.elapsed())
@@ -376,15 +413,14 @@ def role_train_verifier(cfg: RunCfg, device=None):
     from cover_vla_tpu_torch.data.bridge_verifier_dataset import (
         BridgeVerifierDataset)
     from cover_vla_tpu_torch.data.tokenizer import make_verifier_tokenizer
-    from cover_vla_tpu_torch.device import resolve_device
+    from cover_vla_tpu_torch.parallel.distributed import (
+        aggregate_metrics, local_device, rank, world_size)
     from cover_vla_tpu_torch.training import train_verifier
     from cover_vla_tpu_torch.training.optim import linear_warmup, make_adamw
-    from cover_vla_tpu_torch.utils.metrics_sink import make_sinks
     from cover_vla_tpu_torch.utils.monitor import setup_logger
 
     t = cfg.train
-    _one_process()
-    dev = resolve_device(device)
+    dev = local_device(device)
     log = setup_logger("train_verifier")
     vcfg = tiny_verifier_config() if t.tiny else VerifierConfig()
     json_path = t.dataset_dir if t.dataset_dir.endswith(".json") else \
@@ -410,11 +446,10 @@ def role_train_verifier(cfg: RunCfg, device=None):
     tx = make_adamw(linear_warmup(t.lr, t.warmup_steps))
     backbone, state = train_verifier.init_train_state(
         t.seed, vcfg, tx, num_members=t.num_members, device=dev)
-    step_fn = train_verifier.make_ensemble_train_step(vcfg, tx)
-    sinks = make_sinks(
-        jsonl_path=t.metrics_jsonl or os.path.join(t.checkpoint_dir,
-                                                   "metrics.jsonl"),
-        wandb_project=t.wandb_project or None)
+    # the reference's DDP: every rank a replica of the members
+    step_fn = train_verifier.make_ensemble_train_step(
+        vcfg, tx, mesh=_train_mesh(t, dp=world_size(), fsdp=1))
+    sinks = _sinks(t)
 
     def saved():
         return train_verifier.VerifierCheckpoint(state.members,
@@ -436,32 +471,37 @@ def role_train_verifier(cfg: RunCfg, device=None):
         for batch in ds.batches(t.batch_size, tok, ctx, seed=t.seed + i):
             state, metrics = step_fn(state, backbone, on_device(batch))
             if i % 10 == 0:
-                m = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+                m = aggregate_metrics({k: float(v) for k, v in metrics.items()
+                                       if v.ndim == 0})
                 sinks.log(m, step=i)
                 log.info("step %d loss %.4f top1 %.3f", i, m["loss"],
                          m["top1_i2a"])
             i += 1
             if t.val_every and val_batch is not None \
                     and i % t.val_every == 0:
-                val = {k: float(v) for k, v in
-                       train_verifier.ensemble_eval_metrics(
-                           state.members, vcfg, backbone, val_batch).items()}
+                val = aggregate_metrics({k: float(v) for k, v in
+                                         train_verifier.ensemble_eval_metrics(
+                                             state.members, vcfg, backbone,
+                                             val_batch).items()})
                 sinks.log({f"val/{k}": v for k, v in val.items()}, step=i)
                 log.info("step %d val top1 %.3f", i, val["top1_i2a"])
                 save(i)
                 if val["top1_i2a"] > best_top1:
                     best_top1 = val["top1_i2a"]
-                    checkpoints.save_params(
-                        os.path.join(t.checkpoint_dir, "best"),
-                        {"members": state.members, "backbone": backbone})
+                    if not rank():
+                        checkpoints.save_params(
+                            os.path.join(t.checkpoint_dir, "best"),
+                            {"members": state.members, "backbone": backbone})
             if i >= t.num_steps:
                 break
     save(t.num_steps)
-    # the merged ensemble in the reference schema; it reads back through
-    # convert.verifier_from_torch.convert_merged_checkpoint
-    save_merged_ensemble(os.path.join(t.checkpoint_dir, "merged_ensemble.pt"),
-                         state.members, vcfg)
-    log.info("exported merged ensemble (%d members)", t.num_members)
+    if not rank():
+        # the merged ensemble in the reference schema; it reads back
+        # through convert.verifier_from_torch.convert_merged_checkpoint
+        save_merged_ensemble(
+            os.path.join(t.checkpoint_dir, "merged_ensemble.pt"),
+            state.members, vcfg)
+        log.info("exported merged ensemble (%d members)", t.num_members)
     sinks.close()
     log.info("done")
 
@@ -602,10 +642,14 @@ _NOT_PORTED = {"bench": "A.6"}
 
 
 def main(argv=None, device=None):
-    """Parse `argv` and run its role on `device` (CUDA unless given).
-    `--device <name>` in `argv` names the device too; it is no field of
-    the configs, which stay the JAX package's."""
+    """Parse `argv` and run its role on `device` (this rank's CUDA device
+    unless given), in the process group of a multi-process launch when the
+    environment configures one. `--device <name>` in `argv` names the
+    device too; it is no field of the configs, which stay the JAX
+    package's."""
     import sys
+    from cover_vla_tpu_torch.parallel.distributed import (
+        init_multihost, shutdown)
     from cover_vla_tpu_torch.utils.cli import parse
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--device" in argv:
@@ -627,7 +671,12 @@ def main(argv=None, device=None):
         raise SystemExit(
             f"unknown role {cfg.role!r} "
             f"(train|train_pi0fast|train_verifier|serve_policy|eval|bench)")
-    role(cfg, device=device)
+    started = init_multihost(device=device)
+    try:
+        role(cfg, device=device)
+    finally:
+        if started:
+            shutdown()
 
 
 if __name__ == "__main__":

@@ -15,14 +15,21 @@ rate is read at the count before the update, so the first update under
 only when norm >= max_norm. Accumulation over k calls averages the
 gradients as a running mean and advances the inner optimizer (and its
 schedule) once per k calls.
+
+Over sharded leaves (`parallel/mesh.py`) the transformations run on each
+rank's shards; the global norm then sums each rank's part under
+`sharded_norm` and all-reduces it over the 'fsdp' group.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Leaves = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -109,13 +116,40 @@ def linear_warmup(lr: float, warmup_steps: int) -> Schedule:
 # ---------------------------------------------------------------------------
 
 
+class _ShardedNorm(NamedTuple):
+    counts: Dict[str, int]      # elements of each gradient this rank sums
+    group: object               # the 'fsdp' process group
+
+
+_SHARDED_NORM: contextvars.ContextVar[Optional[_ShardedNorm]] = \
+    contextvars.ContextVar("sharded_norm", default=None)
+
+
+@contextlib.contextmanager
+def sharded_norm(counts: Dict[str, int], group):
+    """Inside, `global_norm` (and so the clip) is the norm over every
+    rank's shards: of each gradient it sums the first counts[name]
+    elements (-1: all of them; `parallel.mesh.norm_counts`), then
+    all-reduces the sum over `group`."""
+    token = _SHARDED_NORM.set(_ShardedNorm(counts, group))
+    try:
+        yield
+    finally:
+        _SHARDED_NORM.reset(token)
+
+
 def global_norm(grads: Leaves) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (fp32 sums, summed in
     leaf order)."""
+    scope = _SHARDED_NORM.get()
     total = None
-    for g in grads.values():
+    for k, g in grads.items():
+        if scope is not None and scope.counts[k] >= 0:
+            g = g.reshape(-1)[:scope.counts[k]]
         s = g.float().square().sum()
         total = s if total is None else total + s
+    if scope is not None:
+        dist.all_reduce(total, group=scope.group)
     return sqrt(total)
 
 
@@ -237,25 +271,39 @@ def apply_updates(params: Leaves, updates: Leaves) -> None:
         params[k].add_(u.to(params[k].dtype))
 
 
-def grad_step(tx: GradientTransformation, opt_state: dict, leaves: Leaves,
-              loss_fn) -> Tuple[torch.Tensor, dict, Leaves, dict]:
-    """One optimizer step: differentiate `loss_fn() -> (loss, aux)` with
-    respect to `leaves` (marked requires_grad here), then apply `tx`'s
-    update to them in place. A leaf the loss does not reach gets a zero
-    gradient. Returns (loss detached, aux, gradients, new optimizer
-    state)."""
+def value_and_grad(leaves: Leaves, loss_fn
+                   ) -> Tuple[torch.Tensor, object, Leaves]:
+    """Differentiate `loss_fn() -> (loss, aux)` with respect to `leaves`
+    (marked requires_grad here). A leaf the loss does not reach gets a
+    zero gradient. Returns (loss detached, aux, gradients)."""
     for v in leaves.values():
         v.requires_grad_(True)
     with torch.enable_grad():
         loss, aux = loss_fn()
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
-    grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-             for k, g in zip(leaves, grads)}
-    with torch.no_grad():
-        updates, opt_state = tx.update(grads, opt_state, leaves)
-        apply_updates(leaves, updates)
-    return loss.detach(), aux, grads, opt_state
+    return loss.detach(), aux, {
+        k: torch.zeros_like(leaves[k]) if g is None else g
+        for k, g in zip(leaves, grads)}
+
+
+@torch.no_grad()
+def update_in_place(tx: GradientTransformation, opt_state: dict,
+                    grads: Leaves, leaves: Leaves) -> dict:
+    """Apply `tx`'s update of `grads` to `leaves` in place; returns the new
+    optimizer state."""
+    updates, opt_state = tx.update(grads, opt_state, leaves)
+    apply_updates(leaves, updates)
+    return opt_state
+
+
+def grad_step(tx: GradientTransformation, opt_state: dict, leaves: Leaves,
+              loss_fn) -> Tuple[torch.Tensor, dict, Leaves, dict]:
+    """One optimizer step: `value_and_grad` of `loss_fn() -> (loss, aux)`
+    with respect to `leaves`, then `tx`'s update applied to them in place.
+    Returns (loss detached, aux, gradients, new optimizer state)."""
+    loss, aux, grads = value_and_grad(leaves, loss_fn)
+    return loss, aux, grads, update_in_place(tx, opt_state, grads, leaves)
 
 
 def make_adamw(lr_schedule, weight_decay: float = 1e-10, b1: float = 0.9,

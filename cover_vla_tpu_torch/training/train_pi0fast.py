@@ -3,8 +3,11 @@
 The host prepares the token batch (prompt build, then DCT+BPE action
 tokenization, `make_fast_batch`); the step differentiates
 `pi0fast.token_ce_loss` with respect to every leaf of the tree and applies
-the optimizer of `train_pi0.make_optimizer` in place. Sharding over
-several devices waits for ROADMAP A.4: every `mesh=` argument raises.
+the optimizer of `train_pi0.make_optimizer` in place. With `mesh=` the
+tree and its optimizer state are FSDP-sharded (`train_pi0`'s sharded
+step): a step takes the global batch, and each rank divides its rows'
+summed token losses by the global batch's count, so the mean over ranks is
+the global token mean.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ from cover_vla_tpu_torch.data.fast_tokenizer import (
 from cover_vla_tpu_torch.device import resolve_device
 from cover_vla_tpu_torch.models import pi0fast
 from cover_vla_tpu_torch.models.params import ParamTree
+from cover_vla_tpu_torch.parallel.mesh import (
+    fsdp_sharding, mesh_size, shard_params)
 from cover_vla_tpu_torch.training import optim
-from cover_vla_tpu_torch.training.train_pi0 import _no_mesh
+from cover_vla_tpu_torch.training.train_pi0 import (
+    shard_batch, sharded_grad_step)
 from cover_vla_tpu_torch.utils.tree import flatten
 
 
@@ -78,24 +84,39 @@ def make_fast_batch(frames: Dict, text_tokenizer,
     }
 
 
-def loss_fn(params, cfg: pi0fast.Pi0FastConfig, batch
+def loss_fn(params, cfg: pi0fast.Pi0FastConfig, batch, weight_total=None
             ) -> Tuple[torch.Tensor, Dict]:
     loss = pi0fast.token_ce_loss(
         params, cfg, batch["images"], batch["img_masks"], batch["tokens"],
-        batch["pad_mask"], batch["suffix_mask"])
+        batch["pad_mask"], batch["suffix_mask"], weight_total)
     return loss, {"loss": loss}
 
 
 def make_train_step(cfg: pi0fast.Pi0FastConfig,
                     tx: optim.GradientTransformation, mesh=None):
     """Step over every leaf of the tree: step(state, batch) -> (state,
-    {"loss"})."""
-    _no_mesh(mesh)
+    {"loss"}); with `mesh` the state is a sharded one and the batch
+    global."""
 
     def train_step(state: FastTrainState, batch):
-        loss, _, _, opt_state = optim.grad_step(
-            tx, state.opt_state, flatten(state.params),
-            lambda: loss_fn(state.params, cfg, batch))
+        if mesh is None:
+            loss, _, _, opt_state = optim.grad_step(
+                tx, state.opt_state, flatten(state.params),
+                lambda: loss_fn(state.params, cfg, batch))
+        else:
+            weight = (batch["suffix_mask"][:, 1:]
+                      & batch["pad_mask"][:, 1:]).float()
+            total = weight.sum().clamp_min(1.0)
+            n = mesh_size(mesh)
+            local = shard_batch(batch, mesh)
+
+            def loss_on(params):
+                # n x this rank's share: the mean over ranks is the loss
+                loss, aux = loss_fn(params, cfg, local, total)
+                return loss * n, aux
+
+            opt_state, loss, _ = sharded_grad_step(
+                state, tx, list(flatten(state.params)), mesh, loss_on)
         return FastTrainState(state.params, opt_state,
                               state.step + 1), {"loss": loss}
 
@@ -105,8 +126,11 @@ def make_train_step(cfg: pi0fast.Pi0FastConfig,
 def init_train_state(seed: int, cfg: pi0fast.Pi0FastConfig, tx, mesh=None,
                      device=None) -> FastTrainState:
     """A random pi0-FAST on `device` (CUDA unless given), every leaf
-    trainable, and its optimizer state."""
-    _no_mesh(mesh)
+    trainable, and its optimizer state; sharded over `mesh` when given."""
     params = pi0fast.init_pi0fast(seed, cfg, device=resolve_device(device))
+    if mesh is not None:
+        params = shard_params(params, fsdp_sharding(params, mesh))
+        return FastTrainState(params, tx.init(flatten(params)),
+                              optim.counter())
     leaves = {k: p.requires_grad_(True) for k, p in flatten(params).items()}
     return FastTrainState(params, tx.init(leaves), optim.counter())

@@ -16,8 +16,12 @@ differentiates the backbone (`make_full_train_step`, or
 `train_backbone=True`) under a kernel config raises through the kernel
 wrapper's autograd refusal. A step updates its state's tensors in place
 and returns the state with its new optimizer state and step count.
-Sharding over several devices waits for ROADMAP A.4: every `mesh=`
-argument and `shard_verifier_batch` raise.
+
+With `mesh=` the ensemble step is the reference's NCCL DDP: it takes the
+global batch, each rank computes the symmetric InfoNCE over its LOCAL rows
+(local negatives: DDP never gathers logits across ranks), and gradients
+and metrics are averaged over the ranks; members and optimizer state stay
+replicated. A W-rank step is therefore not the 1-rank step.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from cover_vla_tpu_torch.configs import VerifierConfig
 from cover_vla_tpu_torch.device import resolve_device
 from cover_vla_tpu_torch.models import verifier
 from cover_vla_tpu_torch.models.params import ParamTree
+from cover_vla_tpu_torch.parallel.mesh import batch_sharding, mean_over_mesh
 from cover_vla_tpu_torch.training import optim
-from cover_vla_tpu_torch.training.train_pi0 import _no_mesh
 from cover_vla_tpu_torch.utils.tree import flatten
 
 Metrics = Dict[str, torch.Tensor]
@@ -237,23 +241,60 @@ def make_ensemble_train_step(cfg: VerifierConfig,
     member axis; member diversity comes from independent
     initialisations). The objective is the mean of the member losses.
     step(state, backbone, batch) -> (state, metrics): member means,
-    `member_loss` [M] and `grad_norm`, the global norm before clipping."""
-    _no_mesh(mesh)
+    `member_loss` [M] and `grad_norm`, the global norm before clipping.
+    With `mesh`, the DDP step over the global batch (module docstring)."""
 
     def step(state: VerifierTrainState, backbone, batch):
+        if mesh is not None:
+            batch = shard_verifier_batch(batch, mesh)
         feats = _features({"backbone": backbone}, cfg, batch, grad=False)
-        state, metrics, per_member = _update(
-            state, tx, "members", lambda: info_nce_loss(
-                state.members, cfg, feats, batch["action_histories"]))
+
+        def loss_fn():
+            return info_nce_loss(state.members, cfg, feats,
+                                 batch["action_histories"])
+
+        if mesh is None:
+            state, metrics, per_member = _update(state, tx, "members",
+                                                 loss_fn)
+        else:
+            state, metrics, per_member = _ddp_update(state, tx, mesh,
+                                                     loss_fn)
         metrics["member_loss"] = per_member["loss"].detach()
         return state, metrics
 
     return step
 
 
-def shard_verifier_batch(batch, mesh):
-    raise NotImplementedError(
-        "sharded batches are not ported yet (ROADMAP A.4)")
+def _ddp_update(state: VerifierTrainState, tx, mesh, loss_fn: Callable):
+    """`_update` of the members with the gradients and the [M] metrics
+    averaged over the mesh's ranks before the update: one fp32 all-reduce
+    of them all, concatenated (DDP's bucket)."""
+    def objective():
+        losses, per_member = loss_fn()
+        return losses.mean(), per_member
+
+    leaves = flatten(state.members)
+    _, per_member, grads = optim.value_and_grad(leaves, objective)
+    parts = [t.detach().float().reshape(-1)
+             for t in (*grads.values(), *per_member.values())]
+    mean = mean_over_mesh(torch.cat(parts), mesh).split(
+        [t.numel() for t in parts])
+    grads = {k: m.view_as(g).to(g.dtype)
+             for (k, g), m in zip(grads.items(), mean)}
+    per_member = dict(zip(per_member, mean[len(grads):]))
+    opt_state = optim.update_in_place(tx, state.opt_state, grads, leaves)
+    metrics = _mean_metrics(per_member)
+    metrics["grad_norm"] = optim.global_norm(grads)
+    return (state._replace(opt_state=opt_state, step=state.step + 1),
+            metrics, per_member)
+
+
+def shard_verifier_batch(batch, mesh) -> dict:
+    """This rank's rows of every array of a global batch; lists (the
+    instructions) pass through."""
+    rows = batch_sharding(mesh)
+    return {k: v if isinstance(v, list) else rows(v)
+            for k, v in batch.items()}
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """Package boundary of the PyTorch port: it imports neither jax nor the
-JAX package (nor safetensors, ml_dtypes, PIL or tensorflow, which a CUDA
-installation need not have; yaml only where a YAML file is read, PIL
-only where an encoded image is read), and its entry points do not fall
-back to the CPU silently."""
+JAX package (nor safetensors, ml_dtypes, PIL, tensorflow, pyarrow or cv2,
+which a CUDA installation need not have; yaml only where a YAML file is
+read, PIL only where an encoded image is read, pyarrow and cv2 only where
+a LeRobot dataset's tables and videos are), and its entry points do not
+fall back to the CPU silently."""
 
 import os
 import pkgutil
@@ -52,11 +53,13 @@ def test_every_module_imports_without_jax():
                  "training.validation", "data.pipeline", "data.augment",
                  "training.train_verifier", "training.train_pi0fast",
                  "eval.verifier_retrieval", "data.bridge_verifier_dataset",
-                 "data.rlds"):
+                 "data.rlds", "parallel", "parallel.mesh",
+                 "parallel.distributed", "data.normalize", "data.oxe",
+                 "data.lerobot"):
         assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
             "for m in ('jax', 'cover_vla_tpu', 'safetensors', 'ml_dtypes',\n"
-            "          'yaml', 'PIL', 'tensorflow'):\n"
+            "          'yaml', 'PIL', 'tensorflow', 'pyarrow', 'cv2'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"

@@ -131,8 +131,9 @@ def test_role_train_stops_where_the_port_ends(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="tfrecord"):
         run.main(_argv(ds, str(tmp_path / "ck"), 1,
                        "--train.data_format", "rlds"), device="cpu")
+    # a world size without an address is a half-configured launch
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="A.4"):
+    with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):
         run.main(_argv(ds, str(tmp_path / "ck"), 1), device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -22,6 +22,7 @@ key-bias elements beyond 1e-5 after 3 ensemble steps, the largest 1.4e-4;
 
 import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -344,10 +345,22 @@ def test_ensemble_step_over_three_steps(jparams):
         _assert_params_close(ts.members, js.members)
     assert all(torch.equal(v, backbone_before[k])
                for k, v in flatten(tp["backbone"]).items())
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tv.make_ensemble_train_step(TCFG, ttx, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tv.shard_verifier_batch(b, object())
+    # mesh= takes the DDP path: a rank's rows of the global batch (the
+    # 2-rank step itself: tests/test_torch_sharded_roles.py); a batch of
+    # 4 does not divide over 3 ranks
+    mesh = SimpleNamespace(shape=(2, 1), mesh_dim_names=("dp", "fsdp"),
+                           get_coordinate=lambda: (1, 0),
+                           get_group=lambda axis: None)
+    rows = tv.shard_verifier_batch({**_tbatch(b), "instructions": ["a"]},
+                                   mesh)
+    assert rows["instructions"] == ["a"]
+    assert all(torch.equal(rows[k], _tbatch(b)[k][2:]) for k in b)
+    odd = SimpleNamespace(shape=(3, 1), mesh_dim_names=("dp", "fsdp"),
+                          get_coordinate=lambda: (0, 0),
+                          get_group=lambda axis: None)
+    with pytest.raises(ValueError, match="does not divide"):
+        tv.make_ensemble_train_step(TCFG, ttx, mesh=odd)(
+            ts, tp["backbone"], _tbatch(b))
 
 
 def test_ensemble_gradient_is_each_member_loss_over_m(jparams):
@@ -636,8 +649,9 @@ def test_role_train_verifier_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="no batch"):
         run.main(_role_args(path, str(tmp_path / "ck"), 1,
                             "--train.batch_size", "4"), device="cpu")
+    # a world size without an address is a half-configured launch
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="A.4"):
+    with pytest.raises(ValueError, match="COORDINATOR_ADDRESS"):
         run.main(_role_args(path, str(tmp_path / "ck"), 1), device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

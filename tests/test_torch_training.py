@@ -648,12 +648,38 @@ def test_validate_pi0_matches_jax(jparams):
 
 
 def test_sharded_training_raises():
+    """The mesh= paths as far as they go without a process group: the
+    sharded states hold this rank's flat, block-aligned ranges of the
+    seed's leaves (the moments of the trainable ones only), shard_batch
+    takes the rank's rows, and a batch that does not divide over the
+    ranks is refused. The steps themselves run in gloo processes:
+    tests/test_torch_sharded_training.py."""
+    from types import SimpleNamespace
+    from cover_vla_tpu_torch.parallel.mesh import FlatShard, shard_tensor
+    mesh = SimpleNamespace(shape=(1, 2), mesh_dim_names=("dp", "fsdp"),
+                           get_coordinate=lambda: (0, 1),
+                           get_group=lambda axis: None)
     tx = train_pi0.make_optimizer(optim.warmup_cosine(1e-3, 1, 10))
-    for call in (lambda: train_pi0.init_train_state(0, TCFG, tx, mesh="m",
-                                                    device="cpu"),
-                 lambda: train_pi0.init_partitioned_train_state(
-                     0, TCFG, tx, mesh="m", device="cpu"),
-                 lambda: train_pi0.make_train_step(TCFG, tx, mesh="m"),
-                 lambda: train_pi0.shard_batch({}, "m")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            call()
+    whole = flatten(pi0.init_pi0(0, TCFG, device="cpu"))
+    state = train_pi0.init_train_state(0, TCFG, tx, mesh=mesh, device="cpu")
+    part, mask = train_pi0.init_partitioned_train_state(
+        0, TCFG, tx, mesh=mesh, device="cpu")
+    for s in (state, part):
+        plan = s.params.shard_plan
+        assert {k for k, v in plan.items() if isinstance(v, FlatShard)} == \
+            {k for k, v in whole.items() if v.numel() >= 2 ** 14}
+        for k, v in flatten(s.params).items():
+            want = (shard_tensor(whole[k], plan[k])
+                    if isinstance(plan[k], FlatShard) else whole[k])
+            assert torch.equal(v, want), k
+    assert set(part.opt_state["1"]["mu"]) == {
+        k for k, m in flatten(mask).items() if m}
+    assert set(state.opt_state["1"]["mu"]) == set(whole)
+    assert train_pi0.shard_batch({"x": torch.arange(4)}, mesh)["x"].tolist() \
+        == [2, 3]
+    batch = _tbatch(_batch())                       # B = 3
+    for step, s in ((train_pi0.make_train_step(TCFG, tx, mesh=mesh), state),
+                    (train_pi0.make_partitioned_train_step(
+                        TCFG, tx, mask, mesh=mesh), part)):
+        with pytest.raises(ValueError, match="does not divide"):
+            step(s, torch.Generator().manual_seed(0), batch)
