@@ -105,6 +105,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      resume, the re-saved state byte-equal to the saved one; and the
      2-process gloo parity of the tiny π0's FSDP steps on the machine's
      CPU (this script run as `--gloo-rank`), within the CPU tests' bounds.
+ 11. the bench role: `run.main(["--role", "bench"])` in process at its
+     defaults (cover_vla_tpu_torch/bench.py: the single-episode step,
+     E=16 lockstep episodes blocking, pipelined and profiled, the 5x8
+     protocol, the max-throughput and the int8 steps, 3 repeats), its one
+     JSON line held to the JAX bench's keys, finite positive rates and
+     latencies, the analytic FLOP count, 0 < mfu <= 1, a profiled device
+     time no longer than the pipelined step, and the decode and tower
+     kernels launched 180 and 75 times in each max-throughput and int8
+     step (the prefill kernel never).
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -3704,7 +3713,10 @@ def multiprocess_phase(torch, card, dev):
         cells = {"E16_N16_K1": (16, CoVerConfig(n_samples=16, n_rephrases=1)),
                  "E1_N5_K8": (1, CoVerConfig(n_samples=5, n_rephrases=8))}
         t0 = time.perf_counter()
-        sharded_step_phase(torch, card, dev, pcfg, vcfg, mesh, cells)
+        # 4 in-turns pairs (not STEP_REPEATS): the phase's p50s only
+        # compare the two steps, and the run must leave room for phase 11
+        sharded_step_phase(torch, card, dev, pcfg, vcfg, mesh, cells,
+                           repeats=4)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"phase 10.1 sharded step: wall {time.perf_counter() - t0:.1f} s")
@@ -3725,6 +3737,83 @@ def multiprocess_phase(torch, card, dev):
     gloo_parity_phase()
     log(f"phase 10.5-10.6 torchrun, gloo: wall "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the bench role
+# ---------------------------------------------------------------------------
+
+
+def bench_phase(torch, card, dev):
+    """11: `run.main(["--role", "bench"])` at the role's defaults, with its
+    standard output captured; returns the phase's wall seconds."""
+    import contextlib
+    import io
+    from cover_vla_tpu_torch import bench, run
+    from cover_vla_tpu_torch.configs import (
+        CoVerConfig, Pi0Config, VerifierConfig)
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    pcfg, vcfg = Pi0Config(), VerifierConfig()
+    ccfg = CoVerConfig(n_samples=16, n_rephrases=1)
+    log(f"phase 11: card memory before the role {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
+    ca.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run.main(["--role", "bench"], device=dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ca.launch_counts)
+    lines = [line for line in out.getvalue().splitlines() if line.strip()]
+    for line in lines:
+        log(f"bench: {line}")
+    log(f"phase 11 bench role: wall {wall:.1f} s | {card}")
+    if len(lines) != 1:
+        raise AssertionError(f"the bench role printed {len(lines)} lines")
+    res = json.loads(lines[0])
+    if tuple(res) != bench.JSON_KEYS:
+        raise AssertionError(f"bench keys {tuple(res)} != {bench.JSON_KEYS}")
+    for key in ("value", "vs_baseline", "p50_batched_step_ms",
+                "pipelined_step_ms", "pipelined_actions_per_sec",
+                "p50_single_step_ms", "single_episode_actions_per_sec",
+                "profiled_device_ms", "ref_protocol_5x8_p50_ms",
+                "ref_protocol_5x8_actions_per_sec",
+                "max_throughput_actions_per_sec", "int8_actions_per_sec",
+                "compile_s", "model_tflops_per_step",
+                "xla_reported_tflops_per_step"):
+        if not (isinstance(res[key], (int, float))
+                and math.isfinite(res[key]) and res[key] > 0):
+            raise AssertionError(f"bench {key} = {res[key]!r}")
+    flops = bench._analytic_flops(pcfg, vcfg, ccfg, 16)
+    if res["model_tflops_per_step"] != flops / 1e12:
+        raise AssertionError(f"bench model_tflops_per_step "
+                             f"{res['model_tflops_per_step']} != {flops / 1e12}")
+    if not (res["mfu"] is not None and 0 < res["mfu"] <= 1
+            and res["mfu_profiled"] is not None
+            and 0 < res["mfu_profiled"] <= 1.05):
+        raise AssertionError(f"bench mfu {res['mfu']}, mfu_profiled "
+                             f"{res['mfu_profiled']}")
+    if res["profiled_device_ms"] > res["pipelined_step_ms"] * 1.05:
+        raise AssertionError(
+            f"bench profiled device {res['profiled_device_ms']} ms exceeds "
+            f"the pipelined step {res['pipelined_step_ms']} ms")
+    if torch.cuda.get_device_name(dev) not in res["device"]:
+        raise AssertionError(f"bench device {res['device']!r}")
+    # the max-throughput and int8 steps: a first call and repeats x 10
+    # pipelined ones each; the eager steps launch no kernel
+    steps = 2 * (1 + res["repeats"] * 10)
+    want = {"shared_prefix_gqa": 180 * steps, "mha_dense": 75 * steps,
+            "prefix_gqa": 0}
+    if counts != want:
+        raise AssertionError(f"bench launch counts {counts}, expected {want} "
+                             f"({steps} kernel steps)")
+    log(f"bench: launches {counts} over {steps} max-throughput and int8 "
+        f"steps (180 / 75 / 0 a step); pipelined / blocking E16 "
+        f"{res['pipelined_step_ms'] / res['p50_batched_step_ms']:.3f}, "
+        f"device busy share of the pipelined step "
+        f"{res['profiled_device_ms'] / res['pipelined_step_ms']:.3f} | {card}")
+    return wall
 
 
 def main() -> int:
@@ -3821,6 +3910,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     multiprocess_phase(torch, card, dev)
     log(f"phase 10 multi-process: wall {time.perf_counter() - t0:.1f} s")
+    # phase 11: the bench role --------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase(torch, card, dev)
+    log(f"all phases: wall {time.perf_counter() - t_start:.1f} s")
 
     replaces = {
         "shared_prefix_gqa": "cover_vla_tpu/ops/pallas_attention.py:135",

@@ -1,17 +1,17 @@
 """Unified CLI entry point of the PyTorch port.
 
-Roles ported so far:
+Roles (all of the JAX package's):
   train            — pi0 finetuning on a trajectory dataset (npz dir or
                      rlds shards)
   train_pi0fast    — pi0-FAST finetuning (CE over FAST action tokens)
   train_verifier   — verifier contrastive training
   serve_policy     — websocket policy server (pi0 or CoVer engine)
   eval             — closed-loop CoVer evaluation on a benchmark suite
+  bench            — the full-width throughput benchmark
+                     (`cover_vla_tpu_torch/bench.py`, one JSON line)
 
-The JAX package's `bench` role is not ported yet: `main` stops on it with
-SystemExit. The config classes are the JAX package's, field for field and
-default for default, so every YAML of `config/` parses the same in both
-packages.
+The config classes are the JAX package's, field for field and default for
+default, so every YAML of `config/` parses the same in both packages.
 
 Multi-process: `main` makes the process group from the environment
 (`parallel.distributed.init_multihost`: torchrun's variables or the JAX
@@ -637,8 +637,12 @@ def role_eval(cfg: RunCfg, device=None):
     print(json.dumps(out["summary"], indent=2))
 
 
-# the JAX package's roles this port does not have yet, and where they wait
-_NOT_PORTED = {"bench": "A.6"}
+def role_bench(cfg: RunCfg, device=None):
+    """The throughput benchmark (`cover_vla_tpu_torch.bench`) at its
+    defaults; it takes no argument from the command line, which holds the
+    role's own."""
+    from cover_vla_tpu_torch import bench
+    bench.main([], device=device)
 
 
 def main(argv=None, device=None):
@@ -659,14 +663,9 @@ def main(argv=None, device=None):
         device = argv[i + 1]
         del argv[i:i + 2]
     cfg = parse(RunCfg, argv)
-    if cfg.role in _NOT_PORTED:
-        raise SystemExit(
-            f"role {cfg.role!r} is not ported to the PyTorch port yet "
-            f"(ROADMAP {_NOT_PORTED[cfg.role]}); ported roles: train, "
-            "train_pi0fast, train_verifier, serve_policy, eval")
     role = {"train": role_train, "train_pi0fast": role_train_pi0fast,
             "train_verifier": role_train_verifier, "serve_policy": role_serve,
-            "eval": role_eval}.get(cfg.role)
+            "eval": role_eval, "bench": role_bench}.get(cfg.role)
     if role is None:
         raise SystemExit(
             f"unknown role {cfg.role!r} "

@@ -1,9 +1,12 @@
 """Package boundary of the PyTorch port: it imports neither jax nor the
-JAX package (nor safetensors, ml_dtypes, PIL, tensorflow, pyarrow or cv2,
-which a CUDA installation need not have; yaml only where a YAML file is
-read, PIL only where an encoded image is read, pyarrow and cv2 only where
-a LeRobot dataset's tables and videos are), and its entry points do not
-fall back to the CPU silently."""
+JAX package (nor safetensors, ml_dtypes, PIL, tensorflow, pyarrow, cv2,
+matplotlib, gymnasium, simpler_env, libero or transformers, which a CUDA
+installation need not have; yaml only where a YAML file is read, PIL only
+where an encoded image is read, pyarrow and cv2 only where a LeRobot
+dataset's tables and videos are, tensorflow only where an RT-1 SavedModel
+is run, matplotlib only where a plot is drawn, the simulators only where
+their environments are built), and its entry points do not fall back to
+the CPU silently."""
 
 import os
 import pkgutil
@@ -55,11 +58,17 @@ def test_every_module_imports_without_jax():
                  "eval.verifier_retrieval", "data.bridge_verifier_dataset",
                  "data.rlds", "parallel", "parallel.mesh",
                  "parallel.distributed", "data.normalize", "data.oxe",
-                 "data.lerobot"):
+                 "data.lerobot", "bench", "eval.sim_metrics",
+                 "eval.analyze", "eval.lang_transform", "eval.simpler_utils",
+                 "eval.aloha", "eval.simpler_integration", "eval.libero",
+                 "eval.fake_expert", "robot", "robot.devices",
+                 "serving.alt_policies", "serving.legacy_policies"):
         assert f"cover_vla_tpu_torch.{name}" in mods
     code = ("import sys\n"
             "for m in ('jax', 'cover_vla_tpu', 'safetensors', 'ml_dtypes',\n"
-            "          'yaml', 'PIL', 'tensorflow', 'pyarrow', 'cv2'):\n"
+            "          'yaml', 'PIL', 'tensorflow', 'pyarrow', 'cv2',\n"
+            "          'matplotlib', 'gymnasium', 'simpler_env', 'libero',\n"
+            "          'transformers'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
