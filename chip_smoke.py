@@ -10,7 +10,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      in bf16 at the main path's shapes, at ragged ones and at the edges of
      the kernels' row and key tiles (K1 also at its key-split boundaries,
      S = 1 and 32, G = 1, the padded head dims, and with query rows that
-     attend no key; max abs error <= 2e-2; the prefill
+     attend no key; the verification-scaling experiment's shapes at head
+     dim 16; max abs error <= 2e-2; the prefill
      kernel's fp32 result <= 1e-4), timed beside the twin and one PyTorch
      library call: per call in a stream of enqueued calls, per call inside
      a replayed CUDA graph (device time without the host), and the host
@@ -114,6 +115,17 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      time no longer than the pipelined step, and the decode and tower
      kernels launched 180 and 75 times in each max-throughput and int8
      step (the prefill kernel never).
+ 12. the verification-scaling experiment's committed trained trees
+     (experiments/verification_scaling, read through
+     convert.from_jax.load_pickle without ml_dtypes) at the experiment's
+     widths (head dim 16): lockstep cohorts of 16 fake-env episodes, 60
+     env steps, verifier N=16 K=1 and N=5 K=8, each under eager, fast and
+     all_kernel with the same host noise (successes per config, launches
+     10 / 7 / 2 a verified step under all_kernel); eager's inputs replayed
+     through the kernel configs (every candidate within 1e-2, scores
+     within 2.5e-2, picks equal wherever eager's decision gap exceeds
+     twice the step's largest score difference, and at least one such
+     pick) and, with fp32 trees, through eager on the CPU (1e-4).
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -494,7 +506,17 @@ def kernel_phase(torch, card, dev):
         d64=(2, 4, 5, 8, 1, 64, 130, [130, 86]),
         d72=(2, 4, 5, 8, 1, 72, 130, [130, 86]),
         d128=(2, 4, 5, 8, 1, 128, 130, [130, 86]),
-        d256=(2, 4, 5, 8, 1, 256, 130, [130, 86])).items()}
+        d256=(2, 4, 5, 8, 1, 256, 130, [130, 86]),
+        d16=(2, 4, 5, 8, 1, 16, 130, [130, 86]),
+        d16_rows129_p65=(2, 129, 1, 4, 1, 16, 65, [65, 40])).items()}
+    # the verification-scaling experiment's decode (head dim 16, 4 query
+    # heads over 1 KV head, P = 64 image + 8 prompt tokens, S = 5): its
+    # phase-12 cohorts (16 episodes, N=16 K=1 and N=5 K=8) and its grid's
+    # (10 episodes, N up to 80)
+    k1_edges.update({f"vs_{tag}": shape for tag, shape in dict(
+        n16=(16, 16, 5, 4, 1, 16, 72, [72, 70, 69]),
+        n5_k8=(128, 5, 5, 4, 1, 16, 72, [72, 70, 69]),
+        grid_n80=(10, 80, 5, 4, 1, 16, 72, [72, 69])).items()})
     k1_edges.update({f"{tag}_empty": (*shape, True) for tag, shape in
                      {**k1_main, **k1_edges}.items()})
     # per control step at E=16: so400m 27 layers, ViT-L 24, text 24
@@ -512,6 +534,11 @@ def kernel_phase(torch, card, dev):
                 for s, d in ((1, 64), (63, 64), (64, 72), (65, 64), (127, 72),
                              (128, 64), (129, 72), (577, 64), (129, 16),
                              (65, 32), (130, 128), (193, 256))}
+    # the experiment's towers at head dim 16: the policy's 64 image tokens,
+    # the verifier's 256 patches and its 16 text tokens (16 episodes)
+    k2_edges.update(vs_policy_vision=(16, 64, 4, 16),
+                    vs_verifier_vision=(16, 256, 4, 16),
+                    vs_text=(16, 16, 4, 16))
 
     # prefill of the bench's prompts (B = E*K = 16), of the 5x8 protocol
     # (B = 8) and of the episode path's cohort (B = 4*8 = 32): 328 prefix
@@ -544,7 +571,12 @@ def kernel_phase(torch, card, dev):
                     mixed_block_causal=(2, 200, 200, 8, 2, 128,
                                         [(30, 100), (0, 155)], True),
                     sq17_skv130=(2, 17, 130, 8, 1, 256, [130, 66]),
-                    g1_d72=(2, 77, 77, 3, 3, 72, [60, 77]))
+                    g1_d72=(2, 77, 77, 3, 3, 72, [60, 77]),
+                    # the experiment's prefill: 72 prefix tokens, head
+                    # dim 16, 4 query heads over 1 KV head, at 16 and
+                    # 16 x 8 prompts
+                    vs_n16=(16, 72, 72, 4, 1, 16, [72, 70, 69]),
+                    vs_n5_k8=(128, 72, 72, 4, 1, 16, [72, 70, 69]))
 
     results = {"shared_prefix_gqa": {}, "mha_dense": {}, "prefix_gqa": {}}
     designs = ca.kernel_designs
@@ -1294,7 +1326,9 @@ def int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
                     torch, card, cell, lambda: fn(p, v, *inputs, noise=noise),
                     label=name)
         times = {name: [] for name in runs}
-        for _ in range(STEP_REPEATS):       # the configs in turns
+        # 4 in-turns rounds (not STEP_REPEATS): the p50s only compare the
+        # int8 steps with bf16 fast, and the run must leave room for phase 12
+        for _ in range(4):                  # the configs in turns
             for name, (fn, p, v) in runs.items():
                 t0 = time.perf_counter()
                 fn(p, v, *inputs, noise=noise)
@@ -3816,6 +3850,256 @@ def bench_phase(torch, card, dev):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the verification-scaling experiment's trained trees
+# ---------------------------------------------------------------------------
+
+TRAINED_EPISODES = 16
+TRAINED_TICKS = 60          # the experiment's MAX_ENV_STEPS
+TRAINED_CPU_STEPS = 2       # verified steps replayed on the CPU (fp32)
+
+
+def vs_script():
+    """scripts/torch_verification_scaling.py as a module: the experiment's
+    configs, its attention configs and the loader of the committed trees."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_verification_scaling.py")
+    spec = importlib.util.spec_from_file_location(
+        "torch_verification_scaling", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decision_gap(scores: np.ndarray, n: int, threshold: float) -> float:
+    """The smallest score margin a pick rests on: the stage-1 gate
+    (candidate 0's score against the threshold), the top-two gap of the
+    group means when there are several groups, and the top-two gap inside
+    the winning group. Scores that all move by less than half of it cannot
+    change the pick."""
+    grouped = scores.reshape(-1, n)
+    means = grouped.mean(axis=1)
+    best = np.sort(grouped[int(np.argmax(means))])[::-1]
+    gaps = [abs(float(scores[0]) - threshold)]
+    if len(means) > 1:
+        top = np.sort(means)[::-1]
+        gaps.append(top[0] - top[1])
+    if n > 1:
+        gaps.append(best[0] - best[1])
+    return float(min(gaps))
+
+
+def trained_cohort(torch, vs, dev, pc, vc, ccfg, pp, vp, stats, noises,
+                   record=None):
+    """One lockstep cohort of TRAINED_EPISODES fake-env episodes of the
+    experiment's task (its seeds, its tokenizers) through
+    BatchedCoVerEngine on `dev`, the verified steps fed `noises` in turn;
+    `record` receives each verified step's inputs and noise. Returns the
+    evaluation's result and the number of verified steps."""
+    from cover_vla_tpu_torch.data.tokenizer import (
+        make_policy_tokenizer, make_verifier_tokenizer)
+    from cover_vla_tpu_torch.engine import BatchedCoVerEngine, evaluate_batched
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_verified_step_batched)
+    from cover_vla_tpu_torch.eval.adapters import BridgeSimplerAdapter
+    from cover_vla_tpu_torch.eval.fake_env import make_fake_env
+    from cover_vla_tpu_torch.eval.rephrase import load_rephrases
+
+    step = make_verified_step_batched(pc, vc, ccfg, stats, device=dev)
+    it, calls = iter(noises), []
+
+    def step_fn(pp_, vp_, *inputs, generator=None):
+        noise = next(it)
+        calls.append(1)
+        if record is not None:
+            record.append(([np.array(x) for x in inputs], noise))
+        return step(pp_, vp_, *inputs, noise=noise)
+
+    engine = BatchedCoVerEngine(
+        pp, vp, pc, vc, ccfg, num_episodes=TRAINED_EPISODES, stats=stats,
+        rephrases=load_rephrases() if ccfg.n_rephrases > 1 else None,
+        policy_tokenizer=make_policy_tokenizer(pc.paligemma.vocab_size),
+        verifier_tokenizer=make_verifier_tokenizer(vc.text.vocab_size),
+        seed=7, step_fn=step_fn, device=dev)
+    envs = [make_fake_env(vs.TASK, max_steps=TRAINED_TICKS)
+            for _ in range(TRAINED_EPISODES)]
+    out = evaluate_batched(engine, envs, BridgeSimplerAdapter(stats=stats),
+                           max_steps=TRAINED_TICKS,
+                           seeds=[1000 + e for e in range(TRAINED_EPISODES)])
+    return out, len(calls)
+
+
+def trained_phase(torch, card, dev):
+    """12: the committed trained trees of the verification-scaling
+    experiment (loaded without ml_dtypes or the JAX package) at the
+    experiment's widths: lockstep cohorts of 16 episodes, verifier N=16
+    K=1 and N=5 K=8, under eager, fast and all_kernel with the same host
+    noise; every config's own cohort counted (launches a verified step,
+    successes), then eager's inputs replayed through the kernel configs
+    (candidates, scores, picks) and, with fp32 trees, through eager on the
+    CPU. Returns the all-kernel launches a verified step."""
+    from cover_vla_tpu_torch.configs import CoVerConfig
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_propose_step_batched, make_verified_step_batched)
+    from cover_vla_tpu_torch.models.params import ParamTree
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    vs = vs_script()
+    pcfg, vcfg = vs.experiment_configs()
+    t0 = time.perf_counter()
+    pp, vp, stats = vs.load_trees("policy_params.pkl", "verifier_params.pkl",
+                                  pcfg, vcfg, dev)
+    torch.cuda.synchronize()
+    log(f"trained trees: policy {sum(p.numel() for p in pp.parameters())} + "
+        f"verifier {sum(p.numel() for p in vp.parameters())} params "
+        f"({len([p for p in pp.parameters() if p.dtype == torch.bfloat16])} "
+        f"bf16 leaves) loaded in {time.perf_counter() - t0:.2f} s")
+    attn = {c: vs.attention_configs(pcfg, vcfg, c) for c in vs.CONFIGS}
+    per_step = launches_per_step(pcfg, vcfg)
+    expected = {"all_kernel": per_step,
+                "fast": {**per_step, "prefix_gqa": 0},
+                "eager": {k: 0 for k in per_step}}
+
+    def fp32(tree, device):
+        return ParamTree({k: fp32(tree[k], device)
+                          if isinstance(tree[k], ParamTree)
+                          else tree[k].detach().float().to(device)
+                          for k in tree})
+
+    decided_all, launches = 0, None
+    rng = np.random.default_rng(12)
+    for cohort, (n, k) in (("N16_K1", (16, 1)), ("N5_K8", (5, 8))):
+        ccfg = CoVerConfig(n_samples=n, n_rephrases=k, max_history=(
+            vcfg.history_length - pcfg.chunk_size))
+        noises = rng.standard_normal(
+            (TRAINED_TICKS // pcfg.chunk_size, TRAINED_EPISODES, k, n,
+             pcfg.chunk_size, pcfg.max_action_dim)).astype(np.float32)
+        record = []
+        for a in vs.CONFIGS:              # each config's own episodes
+            pc, vc = attn[a]
+            ca.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, steps = trained_cohort(
+                torch, vs, dev, pc, vc, ccfg, pp, vp, stats, noises,
+                record=record if a == "eager" else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ca.launch_counts)
+            want = {key: v * steps for key, v in expected[a].items()}
+            if counts != want:
+                raise AssertionError(f"trained {cohort} {a}: launches "
+                                     f"{counts}, expected {want} ({steps} "
+                                     f"verified steps)")
+            if a == "all_kernel" and launches is None:
+                launches = {key: v // steps for key, v in counts.items()}
+            log(f"trained {cohort} {a}: {sum(out['success'])}/"
+                f"{TRAINED_EPISODES} successes, {steps} verified steps, "
+                f"wall {wall:.2f} s, launches a verified step "
+                f"{ {key: v // steps for key, v in counts.items()} } | {card}")
+
+        # eager's inputs through the kernel configs: all K*N candidates;
+        # the scores of every candidate whose binarised gripper (raw
+        # output against 0.5) is the same in both configs (a raw gripper
+        # within the bound of 0.5 may binarise the other way and move its
+        # candidate's trajectory, so its score, by a gripper step); the
+        # picks wherever eager's decision gap exceeds twice the step's
+        # largest score difference
+        fused = {a: make_verified_step_batched(pc, vc, ccfg, stats,
+                                               device=dev)
+                 for a, (pc, vc) in attn.items()}
+        propose = {a: make_propose_step_batched(pc, vc, ccfg, stats,
+                                                device=dev)
+                   for a, (pc, vc) in attn.items()}
+        worst = {a: [0.0, 0.0, 0.0, 0.0] for a in ("fast", "all_kernel")}
+        decided = {a: 0 for a in worst}
+        flips = {a: 0 for a in worst}
+        for inputs, noise in record:
+            raw, prop, lt, lm, _, hist, hlen = inputs
+            x = fused["eager"](pp, vp, *inputs, noise=noise)
+            xc = propose["eager"](pp, raw, prop, lt, lm, hist, hlen,
+                                  noise=noise)
+            xs = x.scores.cpu().numpy()
+            for a in worst:
+                f = fused[a](pp, vp, *inputs, noise=noise)
+                fc = propose[a](pp, raw, prop, lt, lm, hist, hlen,
+                                noise=noise)
+                cand = (fc.exec_chunks[..., :6] - xc.exec_chunks[..., :6]
+                        ).abs().max().item()
+                grip = (fc.raw_grippers - xc.raw_grippers).abs().max().item()
+                flip = (fc.verifier_chunks[..., 6]
+                        != xc.verifier_chunks[..., 6]).any(dim=-1)
+                sd = (f.scores - x.scores).abs()
+                sdev = sd.max().item()
+                kept = sd[~flip].max().item() if (~flip).any() else 0.0
+                if cand > FAST_ATOL or grip > 2 * FAST_ATOL or kept > SCORE_ATOL:
+                    raise AssertionError(
+                        f"trained {cohort} {a}: candidates {cand}, raw "
+                        f"gripper {grip}, scores {kept} from eager")
+                worst[a] = [max(w, v) for w, v in zip(worst[a],
+                                                      (cand, grip, kept, sdev))]
+                flips[a] += int(flip.sum())
+                for e in range(TRAINED_EPISODES):
+                    if decision_gap(xs[e], n, ccfg.rescore_threshold) \
+                            <= 2 * sdev:
+                        continue
+                    decided[a] += 1
+                    w = int(x.winner_idx[e])
+                    if int(f.winner_idx[e]) != w:
+                        raise AssertionError(
+                            f"trained {cohort} {a}: episode {e} picks "
+                            f"{int(f.winner_idx[e])}, eager {w} across a "
+                            f"decision gap above twice the score "
+                            f"difference {sdev}")
+                    # the gripper vote reads the winning group's binarised
+                    # grippers: compare it only where none of them flipped
+                    g0 = (w // n) * n
+                    dims = 6 if flip[e, g0:g0 + n].any() else 7
+                    torch.testing.assert_close(
+                        f.exec_chunk[e, :, :dims], x.exec_chunk[e, :, :dims],
+                        rtol=FAST_RTOL, atol=FAST_ATOL)
+        picks = len(record) * TRAINED_EPISODES
+        for a in worst:
+            log(f"trained {cohort} {a} vs eager over {len(record)} verified "
+                f"steps: candidates max dev {worst[a][0]:.3e}, raw gripper "
+                f"{worst[a][1]:.3e}, scores {worst[a][2]:.3e} (bound "
+                f"{SCORE_ATOL}; {flips[a]} of {picks * k * n} candidates "
+                f"binarised their gripper the other way, scores with them "
+                f"{worst[a][3]:.3e}); picks decided by a gap above twice the "
+                f"step's score difference {decided[a]}/{picks}, all equal")
+            decided_all += decided[a]
+
+        if cohort == "N16_K1":
+            inputs, noise = record[0]
+            profile_step(torch, card, f"trained {cohort}", lambda: fused[
+                "all_kernel"](pp, vp, *inputs, noise=noise),
+                label="all_kernel")
+
+        # the same inputs through eager with fp32 trees, card vs CPU
+        cpu = torch.device("cpu")
+        cstep = make_verified_step_batched(pcfg, vcfg, ccfg, stats, device=cpu)
+        pp32, vp32 = fp32(pp, dev), fp32(vp, dev)
+        cpp32, cvp32 = fp32(pp, cpu), fp32(vp, cpu)
+        dev_max, same = 0.0, 0
+        for inputs, noise in record[:TRAINED_CPU_STEPS]:
+            g = fused["eager"](pp32, vp32, *inputs, noise=noise)
+            c = cstep(cpp32, cvp32, *inputs, noise=noise)
+            dev_max = max(dev_max, max(
+                (getattr(g, name).cpu() - getattr(c, name)).abs().max().item()
+                for name in ("exec_chunk", "verifier_chunk", "scores")))
+            same += int(torch.equal(g.winner_idx.cpu(), c.winner_idx))
+        if dev_max > 1e-4 or same != min(len(record), TRAINED_CPU_STEPS):
+            raise AssertionError(f"trained {cohort}: fp32 card vs CPU "
+                                 f"deviation {dev_max}, picks equal in "
+                                 f"{same} steps")
+        log(f"trained {cohort}: fp32 eager card vs CPU over {same} verified "
+            f"steps, max float deviation {dev_max:.3e} (bound 1e-4), picks "
+            f"equal")
+    if decided_all == 0:
+        raise AssertionError("trained: no pick was decided by a gap above "
+                             "twice the score difference")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3914,6 +4198,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bench_phase(torch, card, dev)
+    # phase 12: the experiment's trained trees ---------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained_launches = trained_phase(torch, card, dev)
+    if trained_launches != {"shared_prefix_gqa": 10, "mha_dense": 7,
+                            "prefix_gqa": 2}:
+        raise AssertionError(f"trained launch counts {trained_launches}")
+    log(f"phase 12 trained trees: wall {time.perf_counter() - t0:.1f} s")
     log(f"all phases: wall {time.perf_counter() - t_start:.1f} s")
 
     replaces = {
@@ -3935,6 +4228,7 @@ def main() -> int:
             "name": name, "route": "cuda", "design": designs[name],
             "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
+            "launches_trained_step": trained_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name].values()),
             **total, "bound_by": results[name][bound_by]["bound_by"],
             "per_step_of": {tag: n for tag, n in shapes.items()},

@@ -14,6 +14,26 @@ BIG_NEG = -2.3819763e38  # the reference's masking constant
 
 ATTN_BACKENDS = ("eager", "cuda")
 
+# The JAX package's switch for reduced-precision score products. The port's
+# eager attention computes its scores in full fp32 whatever it is set to
+# (the JAX package does the same on the CPU); the switch and its reading
+# keep the JAX package's interface.
+_FAST_MATH = False
+
+
+def set_fast_math(enabled: bool) -> None:
+    """Record the JAX package's fast-math request. The port's eager score
+    products stay full fp32 either way."""
+    global _FAST_MATH
+    _FAST_MATH = bool(enabled)
+
+
+def score_precision() -> str:
+    """The score-product precision the JAX package would pick under the
+    current request, by its name: "default" when fast math was asked
+    for, else "highest"."""
+    return "default" if _FAST_MATH else "highest"
+
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:

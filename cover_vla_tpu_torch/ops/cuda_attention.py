@@ -248,11 +248,19 @@ def mha_dense_plain(q, k, v) -> torch.Tensor:
 
 def mha_dense(q, k, v) -> torch.Tensor:
     """K2 (shapes as in `mha_dense_plain`). On CUDA the inputs must be
-    contiguous bf16 with a head dim that is a multiple of 8, at most 256."""
+    contiguous floats with a head dim that is a multiple of 8, at most
+    256. As in the JAX kernel and the twin, other float dtypes (an fp32
+    tower) run in bf16 and the result comes back in v's dtype; the kernel
+    writes bf16, so an fp32 result carries one more bf16 rounding than
+    the twin's."""
     _refuse_autograd("mha_dense", q, k, v)
     if not _route("mha_dense", q.device):
         return mha_dense_plain(q, k, v)
     bf = torch.bfloat16
+    out_dtype = v.dtype
+    _check(all(x.is_floating_point() for x in (q, k, v)),
+           "mha_dense: q, k and v must be floats")
+    q, k, v = (x.to(bf) for x in (q, k, v))
     _check_cuda_inputs("mha_dense", dict(q=q, k=k, v=v),
                        dict(q=bf, k=bf, v=bf))
     b, sq, h, d = q.shape
@@ -268,7 +276,7 @@ def mha_dense(q, k, v) -> torch.Tensor:
     _run(lib.cvla_mha_dense, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          out.data_ptr(), b, sq, skv, h, d, d ** -0.5, stream)
     launch_counts["mha_dense"] += 1
-    return out
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

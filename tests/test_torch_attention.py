@@ -342,6 +342,21 @@ def test_kernels_match_twins_on_card(cuda_device, d):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.cuda
+def test_mha_dense_fp32_inputs_on_card(cuda_device):
+    """An fp32 tower (the verification-scaling experiment's verifier) runs
+    K2 in bf16 and gets an fp32 result, as from the twin and the JAX
+    kernel; the kernel's bf16 result adds one rounding."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((16, 256, 4, 16)).astype(
+        np.float32)).to(cuda_device) for _ in range(3))
+    got = cuda_attention.mha_dense(q, k, v)
+    ref = cuda_attention.mha_dense_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= 2e-2
+
+
 # the edges of the warpgroup kernels' tiles: 64 keys, 64 rows a warpgroup,
 # 128 rows a block (16 positions of 8 heads in K3)
 @pytest.mark.cuda

@@ -175,3 +175,45 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     out = evaluate_suite_batched(pp, vp, pcfg, vcfg, ccfg, cfg, n_parallel=1,
                                  device="cpu", **toks)
     assert out["summary"]["total_episodes"] == 1
+
+
+def test_package_level_names_build_no_kernel():
+    """The names the JAX package's `__init__` files export import from the
+    port's packages, in a fresh process, and importing them compiles and
+    loads no kernel library."""
+    code = (
+        "import ctypes, sys\n"
+        "for m in ('jax', 'cover_vla_tpu', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "loaded = []\n"
+        "_cdll = ctypes.CDLL.__init__\n"
+        "def spy(self, name, *a, **kw):\n"
+        "    loaded.append(name)\n"
+        "    _cdll(self, name, *a, **kw)\n"
+        "ctypes.CDLL.__init__ = spy\n"
+        "import cover_vla_tpu_torch\n"
+        "assert cover_vla_tpu_torch.__version__ == '0.1.0'\n"
+        "from cover_vla_tpu_torch.ops import (\n"
+        "    rms_norm, layer_norm, apply_rope, make_att_2d_masks,\n"
+        "    prefix_att_masks, suffix_att_masks, gqa_attention,\n"
+        "    mha_attention, BIG_NEG, resize_bilinear_torch, resize_lanczos4,\n"
+        "    resize_bicubic_pil, resize_with_pad, to_siglip_range, patchify,\n"
+        "    sinusoidal_time_embedding, sample_beta, sample_flow_time,\n"
+        "    sample_noise)\n"
+        "from cover_vla_tpu_torch.ops.attention import (\n"
+        "    set_fast_math, score_precision)\n"
+        "from cover_vla_tpu_torch.data import (\n"
+        "    DatasetStatistics, FieldStats, BRIDGE_STATS_PATH,\n"
+        "    normalize_bound, denormalize_bound, normalize_gaussian,\n"
+        "    denormalize_gaussian)\n"
+        "import cover_vla_tpu_torch.models as models\n"
+        "import cover_vla_tpu_torch.convert as convert\n"
+        "import cover_vla_tpu_torch.training as training\n"
+        "models.gemma, models.siglip, models.pi0, convert.checkpoints\n"
+        "training.optim, training.train_pi0, training.train_pi0fast\n"
+        "from cover_vla_tpu_torch import _build\n"
+        "assert _build.load.cache_info().currsize == 0\n"
+        "assert not any('kernels-' in str(p) for p in loaded), loaded\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

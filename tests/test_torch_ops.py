@@ -92,6 +92,25 @@ def test_lanczos4_uint8_bit_exact(shape, size):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("shape,out", [((64, 64), (128, 128)),
+                                       ((256, 256), (224, 224)),
+                                       ((480, 640), (224, 200)),
+                                       ((37, 53), (96, 112))])
+def test_lanczos4_float_matches(shape, out):
+    """The float LANCZOS4 (no overshoot clipping): the tap matrices equal
+    the JAX package's bit for bit, the resize within 1e-3 at the 0-255
+    scale (fp32 sums of 8 taps per pass in another order)."""
+    np.testing.assert_array_equal(image._lanczos4_matrix(shape[1], out[1]),
+                                  jimage._lanczos4_matrix(shape[1], out[1]))
+    rng = np.random.default_rng(8)
+    img = rng.uniform(0, 255, (2, *shape, 3)).astype(np.float32)
+    ref = np.asarray(jimage.resize_lanczos4(jnp.asarray(img), *out))
+    got = image.resize_lanczos4(_t(img), *out)
+    assert got.shape == (2, *out, 3) and got.dtype == torch.float32
+    assert ref.min() < 0 or ref.max() > 255        # overshoot kept
+    _close(got.numpy(), ref, atol=1e-3)
+
+
 def _assert_rounding_flips_only(got, ref):
     """Rounding between the two passes may flip a value sitting on .5: at
     most 1 off, on at most 0.1% of the pixels."""
@@ -122,6 +141,28 @@ def test_tf_antialias_matches(shape, size):
     # the engine's truncating uint8 cast after the resize
     _assert_rounding_flips_only(np.clip(np.floor(got), 0, 255),
                                 np.clip(np.floor(ref), 0, 255))
+
+
+def test_fast_math_switch_reads_as_in_jax():
+    """`set_fast_math` / `score_precision` read as the JAX package's do
+    (by the precision's name); the port's eager scores stay full fp32, so
+    the attention output does not move."""
+    from cover_vla_tpu.ops import attention as jatt
+    from cover_vla_tpu_torch.ops import attention as att
+    rng = np.random.default_rng(9)
+    q, k, v = (_t(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 4, 2, 8), (1, 4, 1, 8), (1, 4, 1, 8)))
+    m = torch.ones((1, 4, 4), dtype=torch.bool)
+    exact = att.gqa_attention(q, k, v, m)
+    try:
+        for on in (True, False):
+            att.set_fast_math(on)
+            jatt.set_fast_math(on)
+            assert att.score_precision() == jatt.score_precision().name.lower()
+            assert torch.equal(att.gqa_attention(q, k, v, m), exact)
+    finally:
+        att.set_fast_math(False)
+        jatt.set_fast_math(False)
 
 
 def test_patchify_matches():
