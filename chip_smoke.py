@@ -126,6 +126,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      within 2.5e-2, picks equal wherever eager's decision gap exceeds
      twice the step's largest score difference, and at least one such
      pick) and, with fp32 trees, through eager on the CPU (1e-4).
+ 13. the experiment's training stages (scripts/torch_verification_scaling.py)
+     at its widths: one rankdata cohort of 10 episodes with the committed
+     policy, eager driving and the fast propose step (K1, 10 launches a
+     chunk boundary) on the same inputs and noise (trajectories and
+     candidates within 1e-2, each candidate's quality within its chunk
+     pair's Lipschitz bound where both reach the same grasp state); three
+     steps each of train_policy, pretrain_backbone and train_verifier on
+     the card and on the CPU from the same fp32 state and batches (losses
+     within 1e-5, parameters within 1e-4 and all but 1e-2 of them within
+     1e-5, key biases within twice the steps' summed learning rates); the
+     verifier's frozen-backbone step
+     under fast (K2, 5 launches a step, losses within 2e-2 of eager's);
+     and each stage's step time at its batch.
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -160,7 +173,7 @@ K3_FP32_TOL = 1e-4
 # across which a kernel config may pick another candidate.
 FAST_RTOL, FAST_ATOL = 0.0, 1e-2
 SCORE_ATOL = 2.5e-2
-STEP_REPEATS = 10
+STEP_REPEATS = 4            # in-turns rounds of the step p50s
 
 
 def log(msg: str) -> None:
@@ -4100,6 +4113,410 @@ def trained_phase(torch, card, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the verification-scaling experiment's training stages
+# ---------------------------------------------------------------------------
+
+STAGE_STEPS = 3             # card-vs-CPU steps of each stage
+STAGE_TIMED = 20            # timed steps of each stage at its batch
+RANK_EPISODES = 10          # the rankdata cohort
+# Card vs CPU, fp32 with TF32 off, over STAGE_STEPS steps from the same
+# state and batches: losses within STAGE_LOSS_RTOL; every parameter within
+# STAGE_PARAM_ATOL (10% of lr) and all but STAGE_SHARE of them within 1e-5.
+# Adam divides gradients near the rounding level, such as the verifier's
+# text-aware pooling query / key ones, by their own RMS: on an H100 2.6e-3
+# of the verifier's elements sat beyond 1e-5 after three steps, the
+# largest 6.5e-5. An attention key bias, whose gradient is zero in exact
+# arithmetic, moves by up to the learning rate on each side at each step:
+# the bound is twice the sum of the steps' rates.
+STAGE_LOSS_RTOL, STAGE_PARAM_ATOL, STAGE_SHARE = 1e-5, 1e-4, 1e-2
+STAGE_LR = 1e-3
+
+
+def stage_param_check(torch, name, got, want, key_bias_bound):
+    """got (card), want (CPU): {leaf: tensor}; returns (share beyond 1e-5,
+    largest difference outside the key biases, largest key-bias one)."""
+    diff = {k: (got[k].detach().cpu() - want[k].detach()).abs().reshape(-1)
+            for k in want}
+    kb = [k for k in diff if k.endswith("attn.k.bias")]
+    rest = torch.cat([v for k, v in diff.items() if k not in kb])
+    share = float((rest > 1e-5).float().mean())
+    worst = float(rest.max())
+    kbw = max([float(diff[k].max()) for k in kb], default=0.0)
+    if share > STAGE_SHARE or worst > STAGE_PARAM_ATOL or kbw > key_bias_bound:
+        raise AssertionError(f"{name}: card vs CPU parameters: share "
+                             f"{share:.2e} beyond 1e-5, worst {worst:.2e}, "
+                             f"key biases {kbw:.2e}")
+    return share, worst, kbw
+
+
+def stage_rankdata_cohort(torch, vs, card, dev, pp, stats, art):
+    """One rankdata cohort of RANK_EPISODES episodes with the committed
+    policy, driven by eager; at each chunk boundary the `fast` propose step
+    (K1) runs on the same inputs and noise. Trajectories and execution
+    candidates within phase 12's bound (FAST_ATOL); each candidate's
+    quality within its chunk pair's Lipschitz bound of eager's where both
+    reach the same grasp / success state. The records go to
+    `art`/rankdata.npz. Returns the K1 launches of the fast proposals."""
+    import argparse
+    import copy
+    from cover_vla_tpu_torch.configs import CoVerConfig
+    from cover_vla_tpu_torch.data.tokenizer import (
+        make_policy_tokenizer, make_verifier_tokenizer)
+    from cover_vla_tpu_torch.engine import BatchedCoVerEngine, evaluate_batched
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_propose_step_batched, make_select_step_batched)
+    from cover_vla_tpu_torch.eval.adapters import BridgeSimplerAdapter
+    from cover_vla_tpu_torch.eval.fake_env import FakeWidowXEnv
+    from cover_vla_tpu_torch.eval.fake_expert import chunk_quality
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    pcfg, vcfg = vs.experiment_configs()
+    fast_p, _ = vs.attention_configs(pcfg, vcfg, "fast")
+    n = 16
+    ccfg = CoVerConfig(n_samples=n, n_rephrases=1, noise_std=1.0,
+                       selection="injected", gripper_vote=False,
+                       rescore_threshold=float("inf"),
+                       max_history=vcfg.history_length - pcfg.chunk_size)
+    eager = make_propose_step_batched(pcfg, vcfg, ccfg, stats, device=dev)
+    fast = make_propose_step_batched(fast_p, vcfg, ccfg, stats, device=dev)
+    rng = np.random.default_rng(13)
+    seen = {"boundaries": 0, "k1": 0, "traj": 0.0, "exec": 0.0,
+            "candidates": 0, "discrete": 0, "dq": 0.0}
+
+    def propose(pp_, raw, prop, lt, lm, hist, hlen, generator=None):
+        noise = rng.standard_normal((RANK_EPISODES, 1, n, pcfg.chunk_size,
+                                     pcfg.max_action_dim)).astype(np.float32)
+        want = eager(pp_, raw, prop, lt, lm, hist, hlen, noise=noise)
+        ca.reset_launch_counts()
+        got = fast(pp_, raw, prop, lt, lm, hist, hlen, noise=noise)
+        torch.cuda.synchronize()
+        seen["k1"] += ca.launch_counts["shared_prefix_gqa"]
+        # phase 12's rule: the first six action dims within the bound, the
+        # raw grippers within twice it; a raw gripper near 0.5 may
+        # binarise the other way (counted)
+        seen["traj"] = max(seen["traj"], float(
+            (got.trajectories[..., :6] - want.trajectories[..., :6])
+            .abs().max()))
+        seen["exec"] = max(seen["exec"], float(
+            (got.exec_chunks[..., :6] - want.exec_chunks[..., :6])
+            .abs().max()))
+        seen["grip"] = max(seen.get("grip", 0.0), float(
+            (got.raw_grippers - want.raw_grippers).abs().max()))
+        seen["flips"] = seen.get("flips", 0) + int(
+            (got.verifier_chunks[..., 6] != want.verifier_chunks[..., 6])
+            .any(dim=-1).sum())
+        seen["fast"] = got
+        return want
+
+    def discrete_end(env, chunk):
+        sim = copy.deepcopy(env)
+        for a in chunk:
+            _, _, done, trunc, _ = sim.step(np.asarray(a, np.float64))
+            if done or trunc:
+                break
+        return bool(sim._grasped), bool(sim.episode_stats["success"])
+
+    args = argparse.Namespace(oracle_frac=0.3, dagger_frac=0.5,
+                              wrong_noun_frac=0.0)
+    collector = vs.RankdataCollector(args, np.random.default_rng(123))
+    engine = BatchedCoVerEngine(
+        pp, None, pcfg, vcfg, ccfg, num_episodes=RANK_EPISODES, stats=stats,
+        policy_tokenizer=make_policy_tokenizer(pcfg.paligemma.vocab_size),
+        verifier_tokenizer=make_verifier_tokenizer(vcfg.text.vocab_size),
+        seed=9, device=dev,
+        step_fn=(propose, make_select_step_batched(ccfg, device=dev)))
+    own = collector.factory(engine)
+
+    def factory(envs):
+        inner = own(envs)
+
+        def score_fn(exec_chunks, proposal):
+            fx = seen["fast"].exec_chunks.cpu().numpy()
+            for e in np.nonzero(~engine.done)[0]:
+                for i in range(n):
+                    f, w = fx[e, i], exec_chunks[e, i]
+                    if discrete_end(envs[e], f) != discrete_end(envs[e], w):
+                        seen["discrete"] += 1
+                        continue
+                    bound = np.linalg.norm(
+                        np.clip(f[:, :3], -0.05, 0.05)
+                        - np.clip(w[:, :3], -0.05, 0.05), axis=-1).sum()
+                    dq = abs(chunk_quality(envs[e], f)
+                             - chunk_quality(envs[e], w))
+                    seen["candidates"] += 1
+                    seen["dq"] = max(seen["dq"], dq)
+                    if dq > bound + 1e-6:
+                        raise AssertionError(
+                            f"rankdata: fast quality off by {dq:.3e} over "
+                            f"a Lipschitz bound of {bound:.3e}")
+            seen["boundaries"] += 1
+            return inner(exec_chunks, proposal)
+        return score_fn
+
+    engine.score_fn_factory = factory
+    envs = [FakeWidowXEnv(vs.TASK, max_steps=vs.MAX_ENV_STEPS)
+            for _ in range(RANK_EPISODES)]
+    t0 = time.perf_counter()
+    evaluate_batched(engine, envs, BridgeSimplerAdapter(),
+                     max_steps=vs.MAX_ENV_STEPS,
+                     seeds=[50_000 + j for j in range(RANK_EPISODES)])
+    wall = time.perf_counter() - t0
+    if (seen["traj"] > FAST_ATOL or seen["exec"] > FAST_ATOL
+            or seen["grip"] > 2 * FAST_ATOL):
+        raise AssertionError(f"rankdata: fast vs eager trajectories "
+                             f"{seen['traj']:.3e}, candidates "
+                             f"{seen['exec']:.3e}, raw grippers "
+                             f"{seen['grip']:.3e} (bound {FAST_ATOL})")
+    if seen["k1"] != 10 * seen["boundaries"]:
+        raise AssertionError(f"rankdata: K1 {seen['k1']} launches over "
+                             f"{seen['boundaries']} boundaries")
+    if seen["discrete"] > 0.05 * (seen["candidates"] + seen["discrete"]):
+        raise AssertionError(f"rankdata: {seen['discrete']} candidates "
+                             f"reach another grasp state under fast")
+    arrays = collector.arrays()
+    np.savez(os.path.join(art, "rankdata.npz"), **arrays)
+    log(f"stage rankdata cohort (E={RANK_EPISODES}, N={n}, fast vs eager in "
+        f"lockstep): {len(arrays['frames'])} states over "
+        f"{seen['boundaries']} boundaries in {wall:.1f} s (both proposals "
+        f"and the labels), exec mix {collector.counters}; trajectories max "
+        f"dev {seen['traj']:.3e}, candidates {seen['exec']:.3e} (bound "
+        f"{FAST_ATOL}), raw grippers {seen['grip']:.3e}, {seen['flips']} "
+        f"candidates binarised their gripper the other way; qualities within their Lipschitz bound for "
+        f"{seen['candidates']} candidates (largest difference "
+        f"{seen['dq']:.3e}), {seen['discrete']} reach another grasp state; "
+        f"K1 {seen['k1']} launches | {card}")
+    return seen["k1"]
+
+
+def stage_steps_phase(torch, card, dev):
+    """13: the verification-scaling experiment's training stages at its
+    widths: one rankdata cohort (fast against eager), then STAGE_STEPS
+    steps of train_policy, pretrain_backbone and train_verifier on the card
+    and on the CPU from the same fp32 state and batches, the verifier's
+    frozen-backbone step under `fast` (K2), and each stage's step time at
+    its batch. Returns the launches {K1: rankdata cohort, K2: verifier
+    fast steps, K3: 0}."""
+    import argparse
+    import tempfile
+    from cover_vla_tpu_torch.configs import replace
+    from cover_vla_tpu_torch.convert.from_jax import (
+        load_pickle, pi0_from_jax, place_like, verifier_from_jax)
+    from cover_vla_tpu_torch.models.params import ParamTree
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+    from cover_vla_tpu_torch.training import optim, train_pi0, train_verifier
+    from cover_vla_tpu_torch.utils.tree import flatten, unflatten
+
+    vs = vs_script()
+    cpu = torch.device("cpu")
+    pcfg, vcfg = vs.experiment_configs()
+    src = vs.src_dir()
+    stats = load_pickle(os.path.join(src, "stats.pkl"))
+    pp = pi0_from_jax(load_pickle(os.path.join(src, "policy_params.pkl")),
+                      pcfg, device=dev)
+    art = tempfile.mkdtemp(prefix="stage_art_")
+    os.environ["VS_TORCH_ART_DIR"] = art
+    k1 = stage_rankdata_cohort(torch, vs, card, dev, pp, stats, art)
+
+    def fp32_copy(tree, device):
+        return ParamTree(unflatten({k: v.detach().float().clone().to(device)
+                                    for k, v in flatten(tree).items()}))
+
+    def schedule():
+        return vs.stage_schedule(STAGE_LR, 20, 50)
+
+    def run(name, make_state, step, batches, leaves):
+        """STAGE_STEPS steps on the card and on the CPU, held together."""
+        out = []
+        for d in (dev, cpu):
+            state = make_state(d)
+            losses = []
+            for b in batches:
+                state, loss = step(state, {k: v.to(d) for k, v in b.items()})
+                losses.append(float(loss))
+            out.append((leaves(state), losses))
+        (gs, gl), (cs, cl) = out
+        lerr = max(abs(g - c) / max(abs(c), 1e-6) for g, c in zip(gl, cl))
+        if lerr > STAGE_LOSS_RTOL:
+            raise AssertionError(f"{name}: card vs CPU losses {gl} / {cl}")
+        kb_bound = 2 * sum(schedule()(i) for i in range(STAGE_STEPS))
+        share, worst, kbw = stage_param_check(torch, name, gs, cs, kb_bound)
+        log(f"stage {name}: {STAGE_STEPS} steps card vs CPU (fp32, TF32 "
+            f"off): losses {gl[0]:.6f} .. {gl[-1]:.6f}, largest relative "
+            f"difference {lerr:.2e} (bound {STAGE_LOSS_RTOL}); parameters "
+            f"{share:.2e} beyond 1e-5 (bound {STAGE_SHARE}), worst "
+            f"{worst:.2e} (bound {STAGE_PARAM_ATOL}), key biases {kbw:.2e} "
+            f"(bound {kb_bound:.1e})")
+    def timed(name, step_once, b):
+        for _ in range(3):
+            step_once()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STAGE_TIMED):
+            step_once()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / STAGE_TIMED
+        log(f"stage {name} step time at B={b}: {ms:.2f} ms a step (mean of "
+            f"{STAGE_TIMED}), card peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB | {card}")
+
+    gen = torch.Generator().manual_seed(0)
+    # train_policy: the committed policy in fp32, the demos' frames
+    pcfg32 = replace(pcfg, compute_dtype="float32")
+    data, _ = vs.policy_data(argparse.Namespace(rephrases=True), pcfg32, cpu)
+    idx_rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(STAGE_STEPS):
+        idx = idx_rng.integers(0, len(data["state"]), 8)
+        v = idx_rng.integers(0, len(data["lang_tokens"]), 8)
+        b = vs.policy_batch(data, idx, v, pcfg32)
+        b["noise"] = torch.randn(b["actions"].shape, generator=gen)
+        b["time"] = torch.rand((8,), generator=gen) * 0.999 + 0.001
+        batches.append(b)
+
+    def policy_state(d, cfg=pcfg32, params=None):
+        tx = optim.adamw(schedule(), weight_decay=1e-5)
+        params = fp32_copy(pp, d) if params is None else params
+        return (train_pi0.TrainState(params, tx.init(flatten(params)),
+                                     optim.counter()),
+                train_pi0.make_train_step(cfg, tx))
+
+    def policy_step(st, b):
+        state, step = st
+        b = dict(b)
+        noise, t = b.pop("noise"), b.pop("time")
+        state, m = step(state, None, b, noise=noise, time=t)
+        return (state, step), m["loss"]
+
+    run("train_policy", policy_state, policy_step, batches,
+        lambda st: flatten(st[0].params))
+    # pretrain_backbone: the committed tower + a seeded head, synthetic
+    # frames augmented on the CPU
+    frames, positions, shapes = vs.synth_localisation_frames(16)
+    y = torch.from_numpy(vs.localisation_targets(positions, shapes))
+    vision = load_pickle(os.path.join(src, "pretrained_vision.pkl"))
+    p_dim = vcfg.vision.num_patches * vcfg.vision.width
+    head = {"kernel": torch.randn((p_dim, y.shape[1]), generator=gen)
+            * p_dim ** -0.5, "bias": torch.zeros((y.shape[1],))}
+    batches = []
+    for _ in range(STAGE_STEPS):
+        i = torch.randint(0, 16, (8,), generator=gen)
+        f_b, y_b = vs.pretrain_augment(torch.from_numpy(frames)[i], y[i],
+                                       **vs.pretrain_draws(gen, 8, cpu))
+        batches.append({"images": vs.verifier_prep(
+            f_b, vcfg.vision.image_size), "y": y_b})
+
+    def pretrain_state(d):
+        tree = {"vision": place_like(vision, None, d),
+                "head": {k: v.clone().to(d) for k, v in head.items()}}
+        tx = optim.adamw(schedule(), weight_decay=1e-5)
+        return tree, tx, tx.init(flatten(tree))
+
+    def pretrain_step(st, b):
+        tree, tx, opt = st
+        loss, opt = vs.pretrain_update(tx, opt, tree, vcfg, b["images"],
+                                       b["y"])
+        return (tree, tx, opt), loss
+
+    run("pretrain_backbone", pretrain_state, pretrain_step, batches,
+        lambda st: flatten(st[0]))
+    # train_verifier: the committed verifier, the cohort's rankdata, the
+    # regression step with the backbone frozen
+    args = argparse.Namespace(
+        data=["rankdata.npz"], dr_phase="all", min_spread=0.02,
+        rephrases=True, cross_task_text=True, batch=8, augment=True,
+        color_aug=False, objective="regression")
+    vdata = vs.verifier_data(args, vcfg, cpu)
+    vtree = load_pickle(os.path.join(src, "verifier_params.pkl"))
+    batches = [vs.verifier_batch(vdata, gen, args, vcfg,
+                                 vcfg.action_padding_value)
+               for _ in range(STAGE_STEPS)]
+
+    def verifier_state(d, cfg=vcfg):
+        tx = optim.adamw(schedule(), weight_decay=1e-5)
+        params = fp32_copy(verifier_from_jax(vtree, vcfg, device=d), d)
+        return (train_verifier.FullVerifierTrainState(
+            params, tx.init(flatten(params)), optim.counter()),
+            train_verifier.make_regression_train_step(
+                cfg, tx, q_scale=1.0, train_backbone=False))
+
+    def verifier_step(st, b):
+        state, step = st
+        state, m = step(state, b)
+        return (state, step), m["loss"]
+
+    run("train_verifier", verifier_state, verifier_step, batches,
+        lambda st: flatten(st[0].params))
+    # the frozen backbone under `fast` on the card: K2 in the features
+    _, kcfg = vs.attention_configs(pcfg, vcfg, "fast")
+    eager_losses, fast_losses = [], []
+    for cfg, losses in ((vcfg, eager_losses), (kcfg, fast_losses)):
+        st = verifier_state(dev, cfg)
+        ca.reset_launch_counts()
+        for b in batches:
+            st, loss = verifier_step(st, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+    k2 = ca.launch_counts["mha_dense"]
+    if k2 != 5 * STAGE_STEPS:
+        raise AssertionError(f"train_verifier fast: K2 {k2} launches in "
+                             f"{STAGE_STEPS} steps (5 a step expected)")
+    lerr = max(abs(f - e) / abs(e) for f, e in zip(fast_losses, eager_losses))
+    if lerr > KERNEL_TOL:
+        raise AssertionError(f"train_verifier fast vs eager losses "
+                             f"{fast_losses} / {eager_losses}")
+    log(f"stage train_verifier under fast: K2 {k2} launches in "
+        f"{STAGE_STEPS} steps; losses within {lerr:.2e} of eager's (bound "
+        f"{KERNEL_TOL}: the towers' bf16 attention)")
+
+    # step times at the stages' batches and precisions (train_policy 64
+    # in bf16, pretrain 64, train_verifier 24 under fast)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gdata = {k: v.to(dev) for k, v in data.items()}
+    pstate = policy_state(dev, pcfg, ParamTree(unflatten({
+        k: v.detach().clone() for k, v in flatten(pp).items()})))
+    pgen = torch.Generator(device=dev).manual_seed(1)
+
+    def policy_once():
+        nonlocal pstate
+        idx = idx_rng.integers(0, len(data["state"]), 64)
+        v = idx_rng.integers(0, len(data["lang_tokens"]), 64)
+        state, step = pstate
+        state, _ = step(state, pgen, vs.policy_batch(gdata, idx, v, pcfg))
+        pstate = (state, step)
+
+    timed("train_policy", policy_once, 64)
+    dframes, dy = torch.from_numpy(frames).to(dev), y.to(dev)
+    tstate = pretrain_state(dev)
+    dgen = torch.Generator(device=dev).manual_seed(2)
+
+    def pretrain_once():
+        nonlocal tstate
+        tree, tx, opt = tstate
+        i = torch.randint(0, 16, (64,), generator=dgen, device=dev)
+        f_b, y_b = vs.pretrain_augment(dframes[i], dy[i],
+                                       **vs.pretrain_draws(dgen, 64, dev))
+        _, opt = vs.pretrain_update(tx, opt, tree, vcfg, vs.verifier_prep(
+            f_b, vcfg.vision.image_size), y_b)
+        tstate = (tree, tx, opt)
+
+    timed("pretrain_backbone", pretrain_once, 64)
+    vdev = {k: v.to(dev) if hasattr(v, "to") else v for k, v in vdata.items()}
+    args.batch = 24
+    vstate = verifier_state(dev, kcfg)
+
+    def verifier_once():
+        nonlocal vstate
+        vstate, _ = verifier_step(vstate, vs.verifier_batch(
+            vdev, dgen, args, vcfg, vcfg.action_padding_value))
+
+    timed("train_verifier (fast)", verifier_once, 24)
+    os.environ.pop("VS_TORCH_ART_DIR", None)
+    import shutil
+    shutil.rmtree(art, ignore_errors=True)
+    return {"shared_prefix_gqa": k1, "mha_dense": k2, "prefix_gqa": 0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4207,6 +4624,12 @@ def main() -> int:
                             "prefix_gqa": 2}:
         raise AssertionError(f"trained launch counts {trained_launches}")
     log(f"phase 12 trained trees: wall {time.perf_counter() - t0:.1f} s")
+    # phase 13: the experiment's training stages --------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage_launches = stage_steps_phase(torch, card, dev)
+    log(f"phase 13 training stages: wall {time.perf_counter() - t0:.1f} s")
     log(f"all phases: wall {time.perf_counter() - t_start:.1f} s")
 
     replaces = {
@@ -4229,6 +4652,7 @@ def main() -> int:
             "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
             "launches_trained_step": trained_launches[name],
+            "launches_training_stages": stage_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name].values()),
             **total, "bound_by": results[name][bound_by]["bound_by"],
             "per_step_of": {tag: n for tag, n in shapes.items()},

@@ -56,16 +56,18 @@ LOSS_ATOL = 1e-5
 GRAD_REL = 1e-4
 PARAM_ATOL = 1e-5
 # through the train steps: AdamW's parameters all within 1e-4 (10% of lr)
-# and all but 1e-4 of them within PARAM_ATOL; 8-bit AdamW's all but 1%
-# (measured: 0.1% expert-only, 0.8% for the whole tree after 3 steps).
-# Its int8 grids round gradients that differ by ~1e-7, and a block whose
-# gradients are rounding noise on both sides (a gradient that is zero
-# mathematically) quantises to unrelated values; an element whose second
-# moment rounds to 0 while its first keeps a quantum then steps by many
-# times lr (seen here up to ~260 lr). The grids given the same gradients
-# are bit-equal (test_adamw_8bit_bit_equal_to_jax); through the steps at
-# most 1% of their entries differ (measured 0.03% expert-only, 0.4% for
-# the whole tree).
+# and all but 1e-4 of them within PARAM_ATOL; after each teacher-forced
+# 8-bit AdamW step all but 1% (measured: at most 0.013% expert-only,
+# 0.027% for the whole tree). Its int8 grids round gradients that differ
+# by ~1e-7, and a block whose gradients are rounding noise on both sides
+# (a gradient that is zero mathematically) quantises to unrelated values;
+# an element whose second moment rounds to 0 while its first keeps a
+# quantum then steps by many times lr. The grids given the same gradients
+# are bit-equal (test_adamw_8bit_bit_equal_to_jax); after each step at
+# most 1% of their entries differ (measured at most 0.002% expert-only,
+# 0.016% for the whole tree). Over untouched steps those differences
+# compound by an amount that depends on the host, so the 8-bit steps are
+# compared one at a time.
 ADAMW_SHARE, ADAMW_8BIT_SHARE, GRID_SHARE = 1e-4, 1e-2, 1e-2
 SCHEDULE_REL = 1e-6
 
@@ -166,11 +168,38 @@ def _grid_mismatch_share(tstate, jopt) -> float:
     return bad / n
 
 
-def _assert_params_close(tparams, jtree, atol=PARAM_ATOL):
+def _assert_params_close(tparams, jtree, atol=PARAM_ATOL, key_bias=None):
+    """Every leaf within atol of JAX's; with key_bias, the attention key
+    biases within that instead (a softmax is invariant to a key bias, so
+    its gradient is zero in exact arithmetic and Adam moves it by a
+    noise-driven fraction of lr on both sides)."""
     want = _jflat(jtree)
     for k, v in flatten(tparams).items():
+        tol = key_bias if key_bias is not None and k.endswith(
+            "attn.k.bias") else atol
         np.testing.assert_allclose(v.detach().numpy(), want[k], rtol=0,
-                                   atol=atol, err_msg=k)
+                                   atol=tol, err_msg=k)
+
+
+def _teacher_force(ts, js) -> None:
+    """Set the port's state to the JAX state's values in place: the
+    parameters, the 8-bit moments' grids and scales and the count, so the
+    next step is a one-step comparison. A partitioned JAX state holds its
+    moments as a list in the trainable leaves' order."""
+    want = _jflat(js.params)
+    with torch.no_grad():
+        for k, v in flatten(ts.params).items():
+            v.copy_(torch.from_numpy(np.array(want[k])))
+    tstate, jopt = ts.opt_state["1"], js.opt_state[1]
+    for mom in ("mu", "nu"):
+        names = sorted(tstate[mom])
+        for path, v in jax.tree_util.tree_leaves_with_path(
+                getattr(jopt, mom)):
+            k = (names[path[0].idx] if hasattr(path[0], "idx")
+                 else ".".join(str(p.key) for p in path[:-1]))
+            tstate[mom][k][path[-1].name].copy_(
+                torch.from_numpy(np.array(v)))
+    tstate["count"].copy_(torch.tensor(int(jopt.count)))
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +481,11 @@ def _port_state(jparams, tx, partitioned):
 def test_train_steps_match_jax(jparams, inject, opt, partitioned):
     """Three steps of each optimizer through the train steps, parameters
     compared after each (optax AdamW's first update is zero, so one step
-    would prove nothing)."""
+    would prove nothing). AdamW runs one untouched trajectory. 8-bit AdamW
+    is teacher-forced: each port step starts from the JAX step's
+    parameters and optimizer state of the step before and is held to the
+    one-step bounds, so the int8 grids cannot compound the host's 1e-7
+    gradient differences over the steps."""
     noise, time = _draws()
     inject(noise, time)
     batch = _batch()
@@ -462,20 +495,17 @@ def test_train_steps_match_jax(jparams, inject, opt, partitioned):
         optim.warmup_cosine(1e-3, 1, 20), optimizer=opt), partitioned)
     moved = []
     for i in range(3):
+        if opt == "adamw_8bit" and i > 0:
+            _teacher_force(ts, js)
         before = {k: v.detach().clone() for k, v in flatten(ts.params).items()}
         js, jm = jstep(js, jax.random.PRNGKey(i), batch)
         ts, tm = tstep(ts, None, _tbatch(batch), noise=torch.from_numpy(noise),
                        time=torch.from_numpy(time))
         assert int(ts.step) == int(js.step) == i + 1
-        # after an 8-bit step its outlier elements (ADAMW_8BIT_SHARE) move
-        # the loss and the gradient norm by up to ~1.5e-4 of themselves
-        late_8bit = opt == "adamw_8bit" and i > 0
-        np.testing.assert_allclose(
-            tm["loss"].item(), float(jm["loss"]),
-            **(dict(rtol=1e-3) if late_8bit else dict(rtol=0, atol=LOSS_ATOL)))
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                                   rtol=0, atol=LOSS_ATOL)
         np.testing.assert_allclose(tm["grad_norm"].item(),
-                                   float(jm["grad_norm"]),
-                                   rtol=1e-3 if late_8bit else 1e-4)
+                                   float(jm["grad_norm"]), rtol=1e-4)
         share, worst = _mismatch_share(ts.params, js.params)
         if opt == "adamw":
             assert share <= ADAMW_SHARE and worst <= 1e-4, (i, share, worst)
@@ -506,7 +536,7 @@ def test_grad_accum_matches_multisteps(jparams, inject):
                        time=torch.from_numpy(time))
         np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
                                    rtol=0, atol=LOSS_ATOL)
-        _assert_params_close(ts.params, js.params)
+        _assert_params_close(ts.params, js.params, key_bias=1e-3)   # lr
         assert int(ts.opt_state["mini_step"]) == int(js.opt_state.mini_step)
         assert int(ts.opt_state["gradient_step"]) == \
             int(js.opt_state.gradient_step) == (i + 1) // 2

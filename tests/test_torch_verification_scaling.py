@@ -258,7 +258,10 @@ def test_eval_on_the_cpu_writes_the_cells(scripts, tmp_path, monkeypatch):
     assert digest() == before
 
 
-def test_script_imports_without_jax():
+def test_script_imports_without_jax(tmp_path):
+    """The script's import, its loader and every training stage (tiny
+    sizes, into a tmp artifact directory) with `jax`, the JAX package and
+    `ml_dtypes` blocked; the tree it writes names `ml_dtypes.bfloat16`."""
     code = ("import sys\n"
             "for m in ('jax', 'cover_vla_tpu', 'ml_dtypes'):\n"
             "    sys.modules[m] = None\n"
@@ -270,12 +273,27 @@ def test_script_imports_without_jax():
             "pp, vp, stats = s.load_trees('policy_params.pkl',\n"
             "    'verifier_params.pkl', pcfg, vcfg, 'cpu')\n"
             "assert pp['vision']['pos_emb'].dtype.is_floating_point\n"
+            "cpu = ['--device', 'cpu']\n"
+            "s.main(['demos', *cpu, '--n-demos', '2'])\n"
+            "s.main(['train_policy', *cpu, '--steps', '1', '--batch', '2'])\n"
+            "s.main(['rankdata', *cpu, '--episodes', '4', '--n-parallel',\n"
+            "        '2', '--n-candidates', '2'])\n"
+            "s.main(['pretrain_backbone', *cpu, '--steps', '1', '--batch',\n"
+            "        '2', '--synthetic', '12'])\n"
+            "s.main(['train_verifier', *cpu, '--steps', '1', '--batch', '2'])\n"
+            "with open(s.output_path('policy_params.pkl'), 'rb') as f:\n"
+            "    assert b'ml_dtypes' in f.read()\n"
             "assert not any(k == 'jax' or k.startswith(('jax.',\n"
             "    'cover_vla_tpu.', 'ml_dtypes')) for k, v in\n"
             "    sys.modules.items() if v is not None)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+    env = {**os.environ, "VS_TORCH_ART_DIR": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
+    assert sorted(p.name for p in tmp_path.glob("*.meta.json")) == [
+        f"{n}.meta.json" for n in ("demos.npz", "policy_params.pkl",
+                                   "pretrained_vision.pkl", "rankdata.npz",
+                                   "verifier_params.pkl")]
 
 
 def _port_runs():
