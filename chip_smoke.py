@@ -40,8 +40,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      fast and all-kernel configs, in turns with bf16 fast: launch counts,
      every candidate and score within the JAX package's int8 bounds, step
      times, a profile; pi0-FAST (PaliGemma 2B + so400m) greedy
-     generation at B = 1 and 4, deterministic and invariant to padded
-     prompt ids, prefill and per-token times; four served policies (the
+     generation of 64 tokens at B = 1 and 4, deterministic and invariant
+     to padded prompt ids, prefill and per-token times; four served policies (the
      factory's int8 pi0 and pi0-FAST, an int8 pi0 under the fast config,
      the int8_full CoVer engine) answering infer x3, reset, infer through
      the server's verb dispatch, and one localhost websocket round trip
@@ -139,6 +139,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      verifier's frozen-backbone step
      under fast (K2, 5 launches a step, losses within 2e-2 of eager's);
      and each stage's step time at its batch.
+ 14. the experiment's last stages, its OOD diagnostics and the roofline
+     (scripts/torch_verification_scaling.py, torch_ood_diagnostics.py,
+     torch_roofline.py): `calibrate`'s prototype of 512 ID frames under
+     eager and fast on the card and eager on the CPU (card vs CPU within
+     1e-4, fast vs eager within 2e-2); a 10-episode verifier N=16 cohort
+     (fast) on the OOD task farthest from the prototype under the ID p05
+     and p50 thresholds (deferred picks counted, more than 0 at p50, each
+     one candidate 0), and at -inf the calibrated tree's cohort bit-equal
+     to the uncalibrated tree's; `lang` on 64 grounded slates and `regret`
+     on one cohort's slates (proposed under fast), scored under eager and
+     fast: scores within 2.5e-2, picks equal wherever eager's top-two gap
+     exceeds twice the largest score difference, the other flips counted;
+     `probe` of the pretrained tower (256 frames, 100 Adam steps); and the
+     roofline of phase 11's bench trace (eager steps: no hand kernel) and
+     of 1 recorded fast E16_N16_K1 step (K1 180, K2 75 launches a step
+     by the wrappers' record, the trace holding at least 98% of them),
+     each category sum within 2% of bench.trace_device_busy_s and no
+     share above 100%.
 Each phase prints its wall time. The last two lines are the card's `nvidia-smi` name/power line and
 {"ok": true, "device": {...}}; the line before them is the kernel table.
 """
@@ -173,7 +191,7 @@ K3_FP32_TOL = 1e-4
 # across which a kernel config may pick another candidate.
 FAST_RTOL, FAST_ATOL = 0.0, 1e-2
 SCORE_ATOL = 2.5e-2
-STEP_REPEATS = 4            # in-turns rounds of the step p50s
+STEP_REPEATS = 2            # in-turns rounds of the step p50s
 
 
 def log(msg: str) -> None:
@@ -269,10 +287,6 @@ def n_copies(bytes_per_set: int) -> int:
     return max(1, min(8, math.ceil(100e6 / bytes_per_set)))
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 # ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
@@ -299,14 +313,6 @@ def k1_inputs(torch, gen, dev, b, n, s, hq, hkv, d, p, n_valid,
         smask[-1, 0] = False
     return (rnd(b, n, s, hq, d), rnd(b, n, s, hkv, d), rnd(b, n, s, hkv, d),
             rnd(b, p, hkv, d), rnd(b, p, hkv, d), pad, smask)
-
-
-def k1_work(args):
-    q, ks, vs, kp, vp, pad, smask = args
-    b, n, s, hq, d = q.shape
-    valid_keys = pad.sum(dim=1).float() + s            # per batch row
-    flops = float(4 * n * s * hq * d * valid_keys.sum().item())
-    return nbytes(*args) + nbytes(q), flops
 
 
 def k1_library(torch, F, args):
@@ -344,12 +350,6 @@ def k2_inputs(torch, gen, dev, b, s, h, d):
     return rnd(), rnd(), rnd()
 
 
-def k2_work(args):
-    q, k, v = args
-    b, s, h, d = q.shape
-    return nbytes(q, k, v) + nbytes(q), float(4 * b * h * s * k.shape[1] * d)
-
-
 def k3_inputs(torch, gen, dev, b, sq, skv, hq, hkv, d, n_valid,
               causal=False):
     """Prefill-style inputs: key j of batch row i is real when
@@ -375,14 +375,6 @@ def k3_inputs(torch, gen, dev, b, sq, skv, hq, hkv, d, n_valid,
         mask = mask & (pos[None, :] <= pos[-sq:, None])
     mask = mask.contiguous()
     return rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, d), mask
-
-
-def k3_work(args):
-    """Bytes once (bf16 result) and the operations of the attended
-    (query, key) pairs of this run's mask."""
-    q, k, v, mask = args
-    hq, d = q.shape[2], q.shape[3]
-    return nbytes(*args) + nbytes(q), float(4 * hq * d * mask.sum().item())
 
 
 def k3_library(torch, F, args):
@@ -439,6 +431,7 @@ def k3_fp32_check(torch, name, ca, args, separates=True):
 def check_and_time(torch, card, name, design, kernel, twin, inputs_fn,
                    work_fn, library_fn, iters):
     """Compare kernel vs twin on one shape; time kernel, twin, library."""
+    from cover_vla_tpu_torch.ops.kernel_work import nbytes
     args = inputs_fn()
     got, ref = kernel(*args), twin(*args)
     torch.cuda.synchronize()
@@ -472,6 +465,7 @@ def check_and_time(torch, card, name, design, kernel, twin, inputs_fn,
 
 def kernel_phase(torch, card, dev):
     import torch.nn.functional as F
+    from cover_vla_tpu_torch.ops.kernel_work import k1_work, k2_work, k3_work
     from cover_vla_tpu_torch.ops import cuda_attention as ca
     from cover_vla_tpu_torch.ops.attention import gqa_attention
 
@@ -1339,9 +1333,9 @@ def int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
                     torch, card, cell, lambda: fn(p, v, *inputs, noise=noise),
                     label=name)
         times = {name: [] for name in runs}
-        # 4 in-turns rounds (not STEP_REPEATS): the p50s only compare the
-        # int8 steps with bf16 fast, and the run must leave room for phase 12
-        for _ in range(4):                  # the configs in turns
+        # STEP_REPEATS in-turns rounds: the p50s only compare the int8
+        # steps with bf16 fast, and the run must leave room for phase 14
+        for _ in range(STEP_REPEATS):       # the configs in turns
             for name, (fn, p, v) in runs.items():
                 t0 = time.perf_counter()
                 fn(p, v, *inputs, noise=noise)
@@ -3760,10 +3754,10 @@ def multiprocess_phase(torch, card, dev):
         cells = {"E16_N16_K1": (16, CoVerConfig(n_samples=16, n_rephrases=1)),
                  "E1_N5_K8": (1, CoVerConfig(n_samples=5, n_rephrases=8))}
         t0 = time.perf_counter()
-        # 4 in-turns pairs (not STEP_REPEATS): the phase's p50s only
-        # compare the two steps, and the run must leave room for phase 11
+        # STEP_REPEATS in-turns pairs: the phase's p50s only compare the
+        # two steps, and the run must leave room for phases 11-14
         sharded_step_phase(torch, card, dev, pcfg, vcfg, mesh, cells,
-                           repeats=4)
+                           repeats=STEP_REPEATS)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"phase 10.1 sharded step: wall {time.perf_counter() - t0:.1f} s")
@@ -3875,10 +3869,14 @@ TRAINED_CPU_STEPS = 2       # verified steps replayed on the CPU (fp32)
 def vs_script():
     """scripts/torch_verification_scaling.py as a module: the experiment's
     configs, its attention configs and the loader of the committed trees."""
+    return script_module("torch_verification_scaling")
+
+
+def script_module(name: str):
+    """scripts/<name>.py as a module."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "torch_verification_scaling.py")
-    spec = importlib.util.spec_from_file_location(
-        "torch_verification_scaling", path)
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3903,12 +3901,14 @@ def decision_gap(scores: np.ndarray, n: int, threshold: float) -> float:
 
 
 def trained_cohort(torch, vs, dev, pc, vc, ccfg, pp, vp, stats, noises,
-                   record=None):
-    """One lockstep cohort of TRAINED_EPISODES fake-env episodes of the
-    experiment's task (its seeds, its tokenizers) through
+                   record=None, episodes=TRAINED_EPISODES, task=None,
+                   outputs=None):
+    """One lockstep cohort of `episodes` fake-env episodes of `task` (the
+    experiment's task by default; its seeds, its tokenizers) through
     BatchedCoVerEngine on `dev`, the verified steps fed `noises` in turn;
-    `record` receives each verified step's inputs and noise. Returns the
-    evaluation's result and the number of verified steps."""
+    `record` receives each verified step's inputs and noise, `outputs` its
+    result. Returns the evaluation's result and the number of verified
+    steps."""
     from cover_vla_tpu_torch.data.tokenizer import (
         make_policy_tokenizer, make_verifier_tokenizer)
     from cover_vla_tpu_torch.engine import BatchedCoVerEngine, evaluate_batched
@@ -3926,19 +3926,22 @@ def trained_cohort(torch, vs, dev, pc, vc, ccfg, pp, vp, stats, noises,
         calls.append(1)
         if record is not None:
             record.append(([np.array(x) for x in inputs], noise))
-        return step(pp_, vp_, *inputs, noise=noise)
+        out = step(pp_, vp_, *inputs, noise=noise)
+        if outputs is not None:
+            outputs.append(out)
+        return out
 
     engine = BatchedCoVerEngine(
-        pp, vp, pc, vc, ccfg, num_episodes=TRAINED_EPISODES, stats=stats,
+        pp, vp, pc, vc, ccfg, num_episodes=episodes, stats=stats,
         rephrases=load_rephrases() if ccfg.n_rephrases > 1 else None,
         policy_tokenizer=make_policy_tokenizer(pc.paligemma.vocab_size),
         verifier_tokenizer=make_verifier_tokenizer(vc.text.vocab_size),
         seed=7, step_fn=step_fn, device=dev)
-    envs = [make_fake_env(vs.TASK, max_steps=TRAINED_TICKS)
-            for _ in range(TRAINED_EPISODES)]
+    envs = [make_fake_env(task or vs.TASK, max_steps=TRAINED_TICKS)
+            for _ in range(episodes)]
     out = evaluate_batched(engine, envs, BridgeSimplerAdapter(stats=stats),
                            max_steps=TRAINED_TICKS,
-                           seeds=[1000 + e for e in range(TRAINED_EPISODES)])
+                           seeds=[1000 + e for e in range(episodes)])
     return out, len(calls)
 
 
@@ -4517,6 +4520,252 @@ def stage_steps_phase(torch, card, dev):
     return {"shared_prefix_gqa": k1, "mha_dense": k2, "prefix_gqa": 0}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the experiment's last stages, the OOD diagnostics, the roofline
+# ---------------------------------------------------------------------------
+
+CAL_FRAMES = 512            # calibrate's ID frames (its default)
+DEFER_EPISODES = 10
+LANG_SLATES = 64
+PROBE_FRAMES, PROBE_STEPS = 256, 100
+ROOFLINE_STEPS = 1          # fast E16_N16_K1 steps profiled with shapes
+
+
+def pick_rule(name: str, eager: np.ndarray, kernel: np.ndarray) -> str:
+    """Phase 12's rule for argmax picks of [slates, N] scores: a kernel
+    config's pick equals eager's wherever eager's top-two gap exceeds twice
+    the largest score difference; the other picks that differ are counted.
+    Returns the line that says so."""
+    sdev = float(np.abs(kernel - eager).max())
+    if sdev > SCORE_ATOL:
+        raise AssertionError(f"{name}: fast scores {sdev} from eager's")
+    top = np.sort(eager, axis=1)
+    gap = top[:, -1] - top[:, -2]
+    decided = gap > 2 * sdev
+    same = kernel.argmax(1) == eager.argmax(1)
+    if not same[decided].all():
+        raise AssertionError(f"{name}: a pick differs across a top-two gap "
+                             f"above twice the score difference {sdev}")
+    return (f"{name}: scores fast vs eager max dev {sdev:.3e} (bound "
+            f"{SCORE_ATOL}); picks decided by a gap above twice it "
+            f"{int(decided.sum())}/{len(gap)}, all equal; "
+            f"{int((~same).sum())} flips across smaller gaps")
+
+
+def last_stages_phase(torch, card, dev):
+    """14: `calibrate` (eager and fast on the card, eager on the CPU), a
+    deference cohort on an OOD task, `lang` and `regret` under eager and
+    fast with phase 12's pick rule, `probe`, and the roofline of phase
+    11's bench trace and of a recorded fast E16_N16_K1 trace. Returns the
+    launches of the phase's kernel paths."""
+    import tempfile
+    from cover_vla_tpu_torch import bench
+    from cover_vla_tpu_torch.configs import CoVerConfig
+    from cover_vla_tpu_torch.convert.from_jax import (
+        load_pickle, place_like, verifier_from_jax)
+    from cover_vla_tpu_torch.engine.verified_step import (
+        make_verified_step_batched)
+    from cover_vla_tpu_torch.eval.benchmark import TASK_INSTRUCTIONS
+    from cover_vla_tpu_torch.ops import cuda_attention as ca
+
+    vs = vs_script()
+    od = script_module("torch_ood_diagnostics")
+    rf = script_module("torch_roofline")
+    cpu = torch.device("cpu")
+    src = vs.src_dir()
+    pcfg, vcfg = vs.experiment_configs()
+    _, vcfg_f = vs.attention_configs(pcfg, vcfg, "fast")
+    pcfg_f, _ = vs.attention_configs(pcfg, vcfg, "fast")
+    vtree = load_pickle(os.path.join(src, "verifier_params.pkl"))
+    launches = {"shared_prefix_gqa": 0, "mha_dense": 0, "prefix_gqa": 0}
+
+    def count(fn):
+        ca.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in ca.launch_counts.items():
+            launches[k] += v
+        return out, dict(ca.launch_counts)
+
+    # 14.1 calibrate: eager and fast on the card, eager on the CPU
+    t0 = time.perf_counter()
+    frames = vs.calibration_frames(CAL_FRAMES,
+                                   os.path.join(src, "rankdata.npz"))
+    vp = verifier_from_jax(vtree, vcfg, device=dev)
+    (proto, aff), _ = count(lambda: vs.calibration_prototype(
+        vp, vcfg, frames, dev))
+    (proto_f, _), k_fast = count(lambda: vs.calibration_prototype(
+        vp, vcfg_f, frames, dev))
+    proto_c, _ = vs.calibration_prototype(
+        verifier_from_jax(vtree, vcfg, device=cpu), vcfg, frames, cpu)
+    d_cpu = float(np.abs(proto - proto_c).max())
+    d_fast = float(np.abs(proto_f - proto).max())
+    if d_cpu > 1e-4 or d_fast > KERNEL_TOL:
+        raise AssertionError(f"calibrate: prototype card vs CPU {d_cpu}, "
+                             f"fast vs eager {d_fast}")
+    p05, p50 = (float(np.percentile(aff, p)) for p in (5, 50))
+    log(f"calibrate: {CAL_FRAMES} ID frames, prototype card vs CPU (eager, "
+        f"fp32) max dev {d_cpu:.3e} (bound 1e-4), fast vs eager "
+        f"{d_fast:.3e} (bound {KERNEL_TOL}; K2 {k_fast['mha_dense']} "
+        f"launches); ID affinity p05 {p05:.4f}, p50 {p50:.4f}; wall "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+
+    # 14.2 deference: a cohort of the OOD task whose scenes sit farthest
+    # from the prototype, under the ID p05 and p50 thresholds; at -inf the
+    # calibrated tree's run is bit-equal to the uncalibrated tree's
+    t0 = time.perf_counter()
+    med = {t: float(np.median(vs.embed_frames(
+        vp, vcfg, vs.ood_scene_frames(t, 4),
+        TASK_INSTRUCTIONS.get(t, t.replace("_", " ")), dev) @ proto))
+        for t in vs.OOD_TASKS}
+    task = min(med, key=med.get)
+    pp, _, stats = vs.load_trees("policy_params.pkl", "verifier_params.pkl",
+                                 pcfg, vcfg, dev)
+    vpc = vs.stamp_calibration(vp, proto)
+    noises = np.random.default_rng(14).standard_normal(
+        (TRAINED_TICKS // pcfg.chunk_size, DEFER_EPISODES, 1, 16,
+         pcfg.chunk_size, pcfg.max_action_dim)).astype(np.float32)
+
+    def cohort(tree, threshold, outputs, record=None):
+        ccfg = CoVerConfig(n_samples=16, n_rephrases=1, max_history=(
+            vcfg.history_length - pcfg.chunk_size), defer_threshold=threshold)
+        return trained_cohort(torch, vs, dev, pcfg_f, vcfg_f, ccfg, pp, tree,
+                              stats, noises, record=record,
+                              episodes=DEFER_EPISODES, task=task,
+                              outputs=outputs)
+
+    deferred = {}
+    for name, thr in (("p05", p05), ("p50", p50)):
+        outs = []
+        (res, steps), _ = count(lambda: cohort(vpc, thr, outs))
+        deferred[name] = sum(int(o.deferred.sum()) for o in outs)
+        for o in outs:              # a deferred pick executes candidate 0
+            if not (o.winner_idx[o.deferred] == 0).all():
+                raise AssertionError("a deferred pick is not candidate 0")
+        log(f"defer {task} threshold {name} {thr:.4f}: {deferred[name]} of "
+            f"{steps * DEFER_EPISODES} picks deferred, "
+            f"{sum(res['success'])}/{DEFER_EPISODES} successes")
+    if deferred["p50"] == 0:
+        raise AssertionError("deference: no pick deferred at the ID p50")
+    runs = []
+    for tree in (vpc, vp):
+        outs = []
+        cohort(tree, float("-inf"), outs)
+        runs.append(outs)
+    for a, b in zip(*runs):
+        for field in a._fields:
+            if not torch.equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"defer -inf: {field} differs from the "
+                                     "uncalibrated step")
+    log(f"defer: OOD affinity medians {json.dumps({k[7:]: round(v, 4) for k, v in med.items()})}; "
+        f"the calibrated tree at -inf bit-equal to the uncalibrated tree over "
+        f"{len(runs[0])} verified steps; wall {time.perf_counter() - t0:.1f} s")
+
+    # 14.3 lang on LANG_SLATES slates, 14.4 regret on one cohort
+    t0 = time.perf_counter()
+    frames_l, trajs_l, q_l, instrs, rng = od.lang_slates(
+        os.path.join(src, "rankdata_wn.npz"), LANG_SLATES)
+    variants = od.lang_variants(instrs, rng)
+    rows = {}
+    for label, vc in (("eager", vcfg), ("fast", vcfg_f)):
+        scores, k = count(lambda: {key: od.score_slates(
+            vp, vc, frames_l, trajs_l, texts, dev)
+            for key, texts in variants.items()})
+        rows[label] = (scores, od.lang_row(scores, q_l), k)
+    for key in variants:
+        log(pick_rule(f"lang {key}", rows["eager"][0][key],
+                      rows["fast"][0][key]))
+    log(f"lang: eager {json.dumps(rows['eager'][1])}, fast "
+        f"{json.dumps(rows['fast'][1])} (K2 {rows['fast'][2]['mha_dense']})")
+    (slates, k_col) = count(lambda: od.collect_slates(
+        vs.TASK, DEFER_EPISODES, DEFER_EPISODES, 16, 97, pp, stats, pcfg_f,
+        vcfg_f, dev))
+    frames_r, trajs_r, q_r, grasped = slates
+    keep = (q_r.max(1) - q_r.min(1)) > 0.02
+    instr = TASK_INSTRUCTIONS.get(vs.TASK, vs.TASK.replace("_", " "))
+    sc = {label: od.score_slates(vp, vc, frames_r[keep], trajs_r[keep],
+                                 instr, dev)
+          for label, vc in (("eager", vcfg), ("fast", vcfg_f))}
+    log(pick_rule("regret", sc["eager"], sc["fast"]))
+    log(f"regret: {int(keep.sum())} slates of one cohort (K1 "
+        f"{k_col['shared_prefix_gqa']} launches), eager "
+        f"{json.dumps(od.regret_row(sc['eager'], q_r[keep], grasped[keep]))}, "
+        f"fast {json.dumps(od.regret_row(sc['fast'], q_r[keep], grasped[keep]))}; "
+        f"wall {time.perf_counter() - t0:.1f} s")
+
+    # 14.5 probe
+    t0 = time.perf_counter()
+    tower = place_like(load_pickle(os.path.join(src, "pretrained_vision.pkl")),
+                       None, dev)
+    pf, positions, _ = vs.synth_localisation_frames(PROBE_FRAMES, seed=11)
+    targets = torch.from_numpy(np.concatenate(
+        [positions[:, 0:2], positions[:, 3:5], positions[:, 6:8]],
+        1).astype(np.float32) / 0.1).to(dev)
+    domains = od._domain_frames(16)
+    (row, k_probe) = count(lambda: od.probe_rows(
+        *od.train_probe_head(od.features_of(tower, vcfg_f, pf, dev), targets,
+                             PROBE_STEPS),
+        {dom: od.features_of(tower, vcfg_f, df, dev).cpu().numpy()
+         for dom, (df, _) in domains.items()}, domains))
+    if not all(math.isfinite(r["mae"]) for r in row.values()):
+        raise AssertionError(f"probe: {row}")
+    log(f"probe: the pretrained tower, {PROBE_FRAMES} frames, {PROBE_STEPS} "
+        f"Adam steps (fast, K2 {k_probe['mha_dense']}): "
+        f"{json.dumps({d: r['mae'] for d, r in row.items()})}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 14.6 the roofline of phase 11's bench trace (eager steps) and of a
+    # recorded fast E16_N16_K1 trace
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="roofline_")
+    bench_dir = os.environ.get("BENCH_TRACE_DIR", os.path.join(
+        tempfile.gettempdir(), "bench_trace"))
+    _, rec_counts = count(lambda: rf.record(tmp, ROOFLINE_STEPS, "fast", dev))
+    for label, trace_dir, steps, want in (
+            ("bench (phase 11, eager)", bench_dir, 4, {}),
+            ("fast E16_N16_K1 (recorded)", tmp, ROOFLINE_STEPS,
+             {"K1": 180, "K2": 75})):
+        trace = rf.load_trace(rf.trace_path(trace_dir))
+        res = rf.roofline(trace, steps)
+        busy = bench.trace_device_busy_s(trace_dir) * 1e3 / steps
+        cats = {r["category"]: r for r in res["categories"]}
+        # the wrappers' launches a step (the work record), and the trace's:
+        # the device tracer may lose a few events, within 2%
+        work = trace.get("cvlaKernelWork", {})
+        got = {c: work[name]["launches"] / steps
+               for c, name in rf.KERNEL_OF.items() if name in work}
+        traced = {c: cats[c]["launches_per_step"] for c in ("K1", "K2", "K3")
+                  if c in cats}
+        if got != want or set(traced) != set(want) or any(
+                traced[c] < 0.98 * want[c] for c in want):
+            raise AssertionError(f"roofline {label}: hand-kernel launches a "
+                                 f"step {got} recorded, {traced} in the "
+                                 f"trace, expected {want}")
+        if abs(res["busy_ms_per_step"] - busy) > 1e-6 * busy or abs(
+                res["category_sum_ms_per_step"] - busy) > 0.02 * busy:
+            raise AssertionError(f"roofline {label}: busy {busy} ms, union "
+                                 f"{res['busy_ms_per_step']}, category sum "
+                                 f"{res['category_sum_ms_per_step']}")
+        if any(r["share_of_busy"] > 1 for r in res["categories"]):
+            raise AssertionError(f"roofline {label}: a share exceeds 100%")
+        lost = sum(cats[c]["launches_lost"] for c in traced)
+        log(f"roofline {label}: {res['device_events']} device events over "
+            f"{steps} steps, busy {busy:.3f} ms a step, category sum "
+            f"{res['category_sum_ms_per_step']:.3f}; hand-kernel launches a "
+            f"step {got} ({lost} lost by the trace) | {card}")
+        for r in res["categories"]:
+            log(f"  roofline {r['category']:13s} {r['ms_per_step']:9.3f} ms "
+                f"{100 * r['share_of_busy']:6.2f}% "
+                f"{r['launches_per_step']:8.1f} launches  TFLOP/s "
+                f"{r['tflops'] if r['tflops'] is None else round(r['tflops'], 2)}"
+                f"  TB/s {r['tbs'] if r['tbs'] is None else round(r['tbs'], 4)}")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"roofline: wall {time.perf_counter() - t0:.1f} s (record launches "
+        f"{rec_counts})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4581,8 +4830,12 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_exactness(torch, card, dev, pp, vp)
     int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells)
+    from cover_vla_tpu_torch.configs import replace
     from cover_vla_tpu_torch.models.pi0fast import Pi0FastConfig
-    fast_params = pi0fast_phase(torch, card, dev, Pi0FastConfig())
+    # 64 of the 256 decode steps: the per-token time and the checks hold at
+    # any length, and the run must leave room for phase 14
+    fast_params = pi0fast_phase(torch, card, dev,
+                                replace(Pi0FastConfig(), max_decoding_steps=64))
     serving_phase(torch, card, dev, pcfg, vcfg, pp, vp, fast_params)
     log(f"phase 6 serving: wall {time.perf_counter() - t0:.1f} s")
     # phase 7: checkpoints and the entry point ------------------------------
@@ -4630,6 +4883,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage_launches = stage_steps_phase(torch, card, dev)
     log(f"phase 13 training stages: wall {time.perf_counter() - t0:.1f} s")
+    # phase 14: the last stages, the OOD diagnostics, the roofline ---------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    last_launches = last_stages_phase(torch, card, dev)
+    log(f"phase 14 last stages, diagnostics, roofline: wall "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"all phases: wall {time.perf_counter() - t_start:.1f} s")
 
     replaces = {
@@ -4653,6 +4913,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "launches_trained_step": trained_launches[name],
             "launches_training_stages": stage_launches[name],
+            "launches_last_stages": last_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name].values()),
             **total, "bound_by": results[name][bound_by]["bound_by"],
             "per_step_of": {tag: n for tag, n in shapes.items()},

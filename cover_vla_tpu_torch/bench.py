@@ -79,6 +79,11 @@ PEAK_FLOPS = {
     "NVIDIA H100 80GB HBM3": 989e12,     # SXM
     "NVIDIA H100 PCIe": 756e12,
 }
+# the same sheets' other peaks (dense): int8 tensor-core ops/s, fp32
+# outside the tensor cores (TF32 stays off), device-memory bytes/s
+PEAK_INT8_OPS = {"NVIDIA H100 80GB HBM3": 1979e12, "NVIDIA H100 PCIe": 1513e12}
+PEAK_FP32_FLOPS = {"NVIDIA H100 80GB HBM3": 67e12, "NVIDIA H100 PCIe": 51e12}
+PEAK_HBM_BYTES = {"NVIDIA H100 80GB HBM3": 3.35e12, "NVIDIA H100 PCIe": 2.0e12}
 
 # chrome-trace categories of work on the device
 DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -164,6 +169,25 @@ def _spread(vals) -> float:
     return (max(vals) - min(vals)) / m if m > 0 else 0.0
 
 
+def episode_inputs(pcfg, vcfg, ccfg):
+    """One episode's step inputs (raw frame, proprio, prompt tokens and
+    mask, verifier tokens, history): the JAX bench's inputs, drawn in its
+    order; token ids stay inside a small config's vocabulary (the
+    full-width vocabularies exceed 1000)."""
+    rng = np.random.default_rng(0)
+    k, t = ccfg.n_rephrases, pcfg.tokenizer_max_length
+    raw1 = rng.integers(0, 255, (256, 256, 3), dtype=np.uint8)
+    prop1 = rng.uniform(-0.1, 0.1, 7).astype(np.float32)
+    lt1 = rng.integers(0, min(1000, pcfg.paligemma.vocab_size),
+                       (k, t)).astype(np.int32)
+    lm1 = np.zeros((k, t), bool)
+    lm1[:, :12] = True
+    vt1 = rng.integers(0, min(1000, vcfg.text.vocab_size),
+                       vcfg.text.context_length).astype(np.int32)
+    hist1 = np.zeros((ccfg.max_history, 7), np.float32)
+    return raw1, prop1, lt1, lm1, vt1, hist1
+
+
 def run_bench(pcfg, vcfg, ccfg, ccfg58, episodes: int, repeats: int,
               device, n_pipe: int = 10, n_prof: int = 4) -> dict:
     """The benchmark on `device` at the given configs: `ccfg` for the
@@ -210,19 +234,8 @@ def run_bench(pcfg, vcfg, ccfg, ccfg58, episodes: int, repeats: int,
     sync()
     print(f"# init {time.perf_counter() - t0:.1f}s on {dev}", file=sys.stderr)
 
-    # the JAX bench's inputs, drawn in its order; token ids stay inside a
-    # small config's vocabulary (the full-width vocabularies exceed 1000)
-    rng = np.random.default_rng(0)
+    raw1, prop1, lt1, lm1, vt1, hist1 = episode_inputs(pcfg, vcfg, ccfg)
     k, t = ccfg.n_rephrases, pcfg.tokenizer_max_length
-    raw1 = rng.integers(0, 255, (256, 256, 3), dtype=np.uint8)
-    prop1 = rng.uniform(-0.1, 0.1, 7).astype(np.float32)
-    lt1 = rng.integers(0, min(1000, pcfg.paligemma.vocab_size),
-                       (k, t)).astype(np.int32)
-    lm1 = np.zeros((k, t), bool)
-    lm1[:, :12] = True
-    vt1 = rng.integers(0, min(1000, vcfg.text.vocab_size),
-                       vcfg.text.context_length).astype(np.int32)
-    hist1 = np.zeros((ccfg.max_history, 7), np.float32)
 
     # ---- single episode ---------------------------------------------------
     step1 = make_verified_step(pcfg, vcfg, ccfg, stats, device=dev)

@@ -44,6 +44,11 @@ kernel_designs = {"shared_prefix_gqa": "wgmma_tma_split", "mha_dense": "wgmma",
 # launches of each kernel since the last reset (CPU twin calls not counted)
 launch_counts = {"shared_prefix_gqa": 0, "mha_dense": 0, "prefix_gqa": 0}
 
+# while a list is set here, each launch appends (name, the tensors it was
+# launched on) for `ops/kernel_work.py`'s reckoning of its FLOPs and bytes
+# (scripts/torch_roofline.py --record); None costs a launch nothing
+work_log = None
+
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -224,6 +229,9 @@ def shared_prefix_gqa(q, k_suf, v_suf, k_pre, v_pre, prefix_pad,
          prefix_pad.data_ptr(), suffix_mask.data_ptr(), out.data_ptr(),
          b, n, s, hkv, hq // hkv, p_len, d, plan.split, d ** -0.5, stream)
     launch_counts["shared_prefix_gqa"] += 1
+    if work_log is not None:
+        work_log.append(("shared_prefix_gqa", (q, k_suf, v_suf, k_pre, v_pre,
+                                               prefix_pad, suffix_mask)))
     return out
 
 
@@ -276,6 +284,8 @@ def mha_dense(q, k, v) -> torch.Tensor:
     _run(lib.cvla_mha_dense, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          out.data_ptr(), b, sq, skv, h, d, d ** -0.5, stream)
     launch_counts["mha_dense"] += 1
+    if work_log is not None:
+        work_log.append(("mha_dense", (q, k, v)))
     return out.to(out_dtype)
 
 
@@ -338,4 +348,6 @@ def prefix_gqa(q, k, v, mask, out_dtype=None) -> torch.Tensor:
          mask.data_ptr(), out.data_ptr(), b, sq, skv, hkv, hq // hkv, d,
          d ** -0.5, int(out_dtype == torch.float32), stream)
     launch_counts["prefix_gqa"] += 1
+    if work_log is not None:
+        work_log.append(("prefix_gqa", (q, k, v, mask)))
     return out

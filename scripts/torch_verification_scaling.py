@@ -1,5 +1,5 @@
-"""Verification-scaling experiment on the PyTorch port: the training stages
-and the eval grid.
+"""Verification-scaling experiment on the PyTorch port: every stage of
+`scripts/verification_scaling.py`.
 
 The repo's verification-scaling experiment (`scripts/verification_scaling.py`)
 trains a tiny π0 and a tiny verifier ensemble on the scriptable fake env and
@@ -20,6 +20,12 @@ port, with the JAX script's flags and defaults:
                      `engine/batched_engine.py` -> `engine/verified_step.py`
                      -> the towers and the hand kernels), each cell beside
                      the JAX package's committed cell
+  calibrate          the ID scenes' affinity prototype stamped into a
+                     verifier tree (the deference gate's calibration)
+  dagger_note        one DAgger round's meta and cells in a run
+  report             the JAX script's markdown report of a run, each cell
+                     beside JAX's
+  all                demos .. train_verifier, a DAgger round, eval, report
 
 It imports neither `jax` nor the JAX package nor `ml_dtypes`: the committed
 pickles are read by `convert.from_jax.load_pickle`, and the trees it writes
@@ -1418,7 +1424,11 @@ def oracle_score_factory(envs):
 def run_cell(policy_params, verifier_params, pcfg, vcfg, stats,
              mode: str, n_samples: int, trials: int, n_parallel: int,
              seed: int, out_dir=None, n_rephrases: int = 1,
-             task: str = TASK, device=None):
+             task: str = TASK, gripper_vote=None, rescore_threshold=None,
+             defer_threshold=None, device=None):
+    """One cell of the grid; `gripper_vote`, `rescore_threshold` and
+    `defer_threshold` (the verifier arm only) override the CoVerConfig
+    defaults as the JAX script's knobs do."""
     from cover_vla_tpu_torch.configs import CoVerConfig
     from cover_vla_tpu_torch.data.tokenizer import (
         make_policy_tokenizer, make_verifier_tokenizer)
@@ -1439,10 +1449,17 @@ def run_cell(policy_params, verifier_params, pcfg, vcfg, stats,
             max_history=vcfg.history_length - pcfg.chunk_size)
         score_fn_factory = oracle_score_factory
     else:
+        kw = {}
+        if rescore_threshold is not None:
+            kw["rescore_threshold"] = float(rescore_threshold)
+        if defer_threshold is not None and mode == "verifier":
+            kw["defer_threshold"] = float(defer_threshold)
         ccfg = CoVerConfig(
             n_samples=n_samples, n_rephrases=n_rephrases, noise_std=1.0,
-            selection=mode, gripper_vote=mode == "verifier",
-            max_history=vcfg.history_length - pcfg.chunk_size)
+            selection=mode,
+            gripper_vote=(mode == "verifier" if gripper_vote is None
+                          else bool(gripper_vote) and mode == "verifier"),
+            max_history=vcfg.history_length - pcfg.chunk_size, **kw)
         score_fn_factory = None
     ecfg = EvalConfig(task_suite=task, num_trials_per_task=trials,
                       max_steps=MAX_ENV_STEPS, seed=1000, seed_period=10_000)
@@ -1467,6 +1484,8 @@ def run_cell(policy_params, verifier_params, pcfg, vcfg, stats,
             "actions_per_sec": round(out["actions_per_sec"], 1)}
     if task != TASK:
         cell["task"] = task
+    if defer_threshold is not None and mode == "verifier":
+        cell["defer_threshold"] = float(defer_threshold)
     return cell
 
 
@@ -1503,14 +1522,22 @@ def card_line(dev) -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def jax_cells(path: str):
-    """The JAX package's committed cells, keyed as the grid keys them."""
+def jax_cells(path: str, policy: str = "policy_params.pkl"):
+    """The JAX package's committed cells, keyed as the grid keys them; the
+    grid of a run of the rephrase-augmented policy is JAX's
+    `rephrase_policy_grid` (its `policy` names the tree first)."""
     with open(path) as f:
         ref = json.load(f)
+    cells = ref["grid"]
+    rp = ref.get("rephrase_policy_grid")
+    if rp and os.path.basename(policy) == rp.get("policy", "").split()[0]:
+        cells = rp["cells"]
+    elif os.path.basename(policy) != "policy_params.pkl":
+        cells = []
     grid = {(c["mode"], c["n_samples"], c.get("n_rephrases", 1)): c
-            for c in ref["grid"]}
+            for c in cells}
     ood = {(c["task"], c["mode"], c["n_samples"]): c
-           for c in ref.get("ood_grid", [])}
+           for c in ref.get("ood_grid", []) if cells}
     return grid, ood
 
 
@@ -1560,13 +1587,16 @@ def is_run(r: dict, config: str, name) -> bool:
     return r["config"] == config and r.get("name") == name
 
 
+def find_run(results: dict, config: str, name):
+    return next((r for r in results["runs"] if is_run(r, config, name)), None)
+
+
 def record(path: str, config: str, run_info: dict, cell: dict, ood: bool,
            name=None):
     """Put `cell` into the run of (`config`, `name`), replacing a cell of
     the same key."""
     with locked_results(path) as results:
-        run = next((r for r in results["runs"] if is_run(r, config, name)),
-                   None)
+        run = find_run(results, config, name)
         if run is None:
             run = {"config": config, "grid": [], "ood_grid": []}
             if name is not None:
@@ -1600,10 +1630,37 @@ def eval_tree_paths(args):
     return paths[0], paths[1], base
 
 
+def results_path(args) -> str:
+    """The results file of `dagger_note` and `report`: `--results`, else
+    the artifact directory's when `--art-dir` names one, else
+    experiments/verification_scaling_torch/results.json."""
+    if args.results:
+        return args.results
+    return os.path.join(art_dir() if args.art_dir else out_dir(),
+                        "results.json")
+
+
+def eval_knobs(args) -> dict:
+    """The non-default knobs of an eval run (a run under one must be
+    named, so that its cells never replace the default run's)."""
+    knobs = {k: getattr(args, k) for k in ("gripper_vote",
+                                           "rescore_threshold",
+                                           "defer_threshold")
+             if getattr(args, k) is not None}
+    if knobs and not (args.run_name or (args.record_mode
+                                        and args.modes == ["verifier"])):
+        raise SystemExit(
+            f"eval: {sorted(knobs)} change what a cell measures; name the "
+            "run with --run-name (or, for the verifier arm alone, "
+            "--record-mode with --modes verifier)")
+    return knobs
+
+
 def cmd_eval(args):
     import torch
     from cover_vla_tpu_torch.device import resolve_device
 
+    knobs = eval_knobs(args)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         # the image ops' separable products must run in true fp32
@@ -1622,20 +1679,30 @@ def cmd_eval(args):
             vp = quant.quantize_verifier(vp)
         print(f"  quantized policy tree ({args.quantize})")
 
-    res_path = os.path.join(base, "results.json")
-    if not args.merge and os.path.exists(res_path):
-        # a fresh run of this config replaces its entry; other configs'
-        # runs stay
+    res_path = args.results or os.path.join(base, "results.json")
+    existing = set()
+    if os.path.exists(res_path):
         with locked_results(res_path) as results:
-            results["runs"] = [r for r in results["runs"]
-                               if not is_run(r, args.config, args.run_name)]
-    jax_grid, jax_ood = jax_cells(os.path.join(src_dir(), "results.json"))
+            if not args.merge:
+                # a fresh run of this config replaces its entry; other
+                # configs' runs stay
+                results["runs"] = [r for r in results["runs"] if not is_run(
+                    r, args.config, args.run_name)]
+            elif args.skip_existing:
+                run = find_run(results, args.config, args.run_name)
+                existing = {cell_key(c) for c in (run["grid"] + run["ood_grid"]
+                                                  if run else [])}
+    jax_grid, jax_ood = jax_cells(os.path.join(src_dir(), "results.json"),
+                                  policy_path)
+    trees = {"policy_params": os.path.relpath(policy_path, REPO),
+             "verifier_params": os.path.relpath(verifier_path, REPO)}
     run_info = {"device": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
                 "card": card_line(dev), "torch": torch.__version__,
                 "n_parallel": args.n_parallel, "seed": 7,
-                "policy_params": os.path.relpath(policy_path, REPO),
-                "verifier_params": os.path.relpath(verifier_path, REPO)}
+                # cells recorded under another mode name keep their trees
+                # in the cell, so the run's stay its own
+                **({} if args.record_mode else trees)}
     episodes = os.path.join(base, "episodes", *(
         [args.run_name] if args.run_name else []), args.config)
 
@@ -1643,22 +1710,36 @@ def cmd_eval(args):
         return args.record_mode if (args.record_mode
                                     and mode == "verifier") else mode
 
-    def one(mode, n_samples, n_reph, trials, jax_ref, ood, name, **kw):
+    def one(mode, n_samples, n_reph, trials, jax_ref, ood, name, task=TASK):
+        if (task, rec_mode(mode), n_samples, n_reph) in existing:
+            print(f"  {args.config:10s} {task[7:]:28s} {rec_mode(mode):13s} "
+                  f"N={n_samples:3d} K={n_reph}: kept (--skip-existing)")
+            return None
         t0 = time.time()
+        cell_knobs = knobs if mode != "oracle" else {}
         cell = run_cell(pp, vp, pcfg, vcfg, stats, mode, n_samples,
                         trials=trials, n_parallel=args.n_parallel, seed=7,
                         out_dir=os.path.join(episodes, name),
-                        n_rephrases=n_reph, device=dev, **kw)
+                        n_rephrases=n_reph, task=task, device=dev,
+                        **cell_knobs)
         cell["mode"] = rec_mode(mode)
         cell["wall_s"] = round(time.time() - t0, 1)
         cell.update(config=args.config, device=run_info["device"],
                     n_parallel=args.n_parallel)
+        if args.record_mode:
+            cell.update(trees)
         if args.quantize != "none":
             cell["quantize"] = args.quantize
-        cell = beside_jax(cell, jax_ref)
+        # the knobs this cell ran under (the vote and the deference act on
+        # the verifier arm only); JAX committed no cell under a knob
+        applied = {k: v for k, v in cell_knobs.items()
+                   if mode == "verifier" or k == "rescore_threshold"}
+        cell.update(applied)
+        cell = beside_jax(cell, None if applied else jax_ref)
         record(res_path, args.config, run_info, cell, ood, args.run_name)
         ref = (f"JAX {jax_ref['successes']}/{jax_ref['episodes']} z "
-               f"{cell['z_vs_jax']:+.2f}" if jax_ref else "no JAX cell")
+               f"{cell['z_vs_jax']:+.2f}" if cell["jax_successes"] is not None
+               else "no JAX cell")
         print(f"  {args.config:10s} {cell.get('task', TASK)[7:]:28s} "
               f"{cell['mode']:13s} N={n_samples:3d} K={n_reph}: "
               f"{cell['successes']}/{cell['episodes']} "
@@ -1700,7 +1781,7 @@ def cmd_eval(args):
                 f"oracle_N{n_samples}")
 
     if args.ood:
-        for task in OOD_TASKS:
+        for task in (args.ood_tasks or OOD_TASKS):
             short = task.replace("widowx_", "")
             for mode, n_samples in OOD_MODES:
                 if args.modes and mode not in args.modes:
@@ -1710,17 +1791,620 @@ def cmd_eval(args):
                     f"ood_{short}_{rec_mode(mode)}_N{n_samples}", task=task)
 
     # the analyzer's view of stage-2 language selection in the K=8 cell
-    if ("verifier", 5, 8) in ran and not args.record_mode:
+    if ran.get(("verifier", 5, 8)) is not None and not args.record_mode:
         from cover_vla_tpu_torch.eval import analyze
         switch = analyze.instruction_switch_stats(analyze.load_episodes(
             os.path.join(episodes, "verifier_N5_K8")))
         with locked_results(res_path) as results:
-            run = next(r for r in results["runs"]
-                       if is_run(r, args.config, args.run_name))
-            run["instruction_switch_K8"] = switch
+            find_run(results, args.config, args.run_name)[
+                "instruction_switch_K8"] = switch
         print(f"  K=8 instruction switches: {switch['episodes_with_switch']}"
               f"/{switch['episodes']} episodes")
     print(f"saved {res_path}")
+
+
+# ---------------------------------------------------------------------------
+# calibrate (scripts/verification_scaling.py:1402-1477)
+# ---------------------------------------------------------------------------
+
+
+def embed_frames(vp, vcfg, frames: np.ndarray, instruction: str, dev,
+                 chunk: int = 64) -> np.ndarray:
+    """`verifier.image_text_embed` of raw uint8 frames under one
+    instruction, `chunk` frames a call: fp32 [B, d] on the host."""
+    import torch
+    from cover_vla_tpu_torch.data.tokenizer import make_verifier_tokenizer
+    from cover_vla_tpu_torch.models import verifier
+    vt, _ = make_verifier_tokenizer(vcfg.text.vocab_size).encode_batch(
+        [instruction], vcfg.text.context_length)
+    out = []
+    with torch.no_grad():
+        for i in range(0, len(frames), chunk):
+            imgs = verifier_prep(torch.from_numpy(
+                np.ascontiguousarray(frames[i:i + chunk])).to(dev),
+                vcfg.vision.image_size)
+            toks = torch.from_numpy(np.broadcast_to(
+                vt[0], (len(imgs), vt.shape[1])).astype(np.int64)).to(dev)
+            out.append(verifier.image_text_embed(vp, vcfg, imgs, toks)
+                       .float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def calibration_frames(n: int, rankdata: str = "rankdata.npz") -> np.ndarray:
+    """`n` ID frames of the ranking data, chosen by a `default_rng(0)`
+    permutation."""
+    with np.load(input_path(rankdata)) as rd:
+        frames = rd["frames"]
+    idx = np.random.default_rng(0).permutation(len(frames))[:n]
+    return frames[idx]
+
+
+def ood_scene_frames(task: str, envs: int) -> np.ndarray:
+    """Frames of short random rollouts of `task`: per env (seed 1000 + s)
+    the reset frame and four random steps (`default_rng(s)`)."""
+    from cover_vla_tpu_torch.eval.fake_env import FakeWidowXEnv
+    frames = []
+    for s in range(envs):
+        env = FakeWidowXEnv(task, max_steps=MAX_ENV_STEPS)
+        env.reset(seed=1000 + s)
+        frames.append(env.render())
+        arng = np.random.default_rng(s)
+        for _ in range(4):
+            a = np.zeros(7)
+            a[:3] = arng.uniform(-0.05, 0.05, 3)
+            a[6] = arng.choice([-1.0, 1.0])
+            env.step(a)
+            frames.append(env.render())
+    return np.stack(frames)
+
+
+def calibration_prototype(vp, vcfg, id_frames, dev):
+    """(the L2-normalised mean ID embedding, the ID affinities): the host
+    arithmetic of the JAX script, in fp32."""
+    id_emb = embed_frames(vp, vcfg, id_frames, task_instruction(), dev)
+    proto = id_emb.mean(0)
+    proto = proto / np.linalg.norm(proto)
+    return proto, id_emb @ proto
+
+
+def stamp_calibration(vp, proto: np.ndarray):
+    """The verifier tree with `calibration.prototype` (fp32) set."""
+    import torch
+    from cover_vla_tpu_torch.models.params import ParamTree
+    dev = next(iter(vp.parameters())).device
+    return ParamTree({**{k: vp[k] for k in vp if k != "calibration"},
+                      "calibration": {"prototype": torch.from_numpy(
+                          proto.astype(np.float32)).to(dev)}})
+
+
+def affinity_line(label: str, aff: np.ndarray, p90: bool = False) -> str:
+    return (f"{label} ({len(aff)} frames): " + " ".join(
+        f"p{p:02d}={np.percentile(aff, p):.4f}" for p in (1, 2, 5, 10, 50))
+        + (f" p90={np.percentile(aff, 90):.4f}" if p90 else ""))
+
+
+def cmd_calibrate(args):
+    """Affinity calibration for the phase-aware deference: the ID frames'
+    prototype under the ID instruction, stamped into the verifier tree as
+    `calibration.prototype`, with the ID and each OOD task's affinity
+    percentiles (the evidence for `eval --defer-threshold`). The prototype
+    sees ID frames only; the OOD distributions are diagnostic output."""
+    from cover_vla_tpu_torch.convert.from_jax import (
+        load_pickle, verifier_from_jax)
+    from cover_vla_tpu_torch.eval.benchmark import TASK_INSTRUCTIONS
+
+    dev = stage_device(args)
+    pcfg0, vcfg0 = experiment_configs()
+    _, vcfg = attention_configs(pcfg0, vcfg0, args.config)
+    src = input_path(args.verifier_params)
+    vp = verifier_from_jax(load_pickle(src), vcfg0, device=dev)
+    t0 = time.perf_counter()
+    proto, id_aff = calibration_prototype(
+        vp, vcfg, calibration_frames(args.frames), dev)
+    print(affinity_line("ID affinity", id_aff), flush=True)
+    ood = {}
+    for task in args.ood_tasks or OOD_TASKS:
+        emb = embed_frames(vp, vcfg, ood_scene_frames(task, args.ood_envs),
+                           TASK_INSTRUCTIONS.get(task, task.replace("_", " ")),
+                           dev)
+        ood[task] = emb @ proto
+        print(affinity_line(f"OOD {task.replace('widowx_', ''):40s}",
+                            ood[task], p90=True), flush=True)
+    # never written back into the committed directory
+    out = (args.out if args.out and os.path.dirname(args.out)
+           else output_path(args.out or os.path.basename(args.verifier_params)))
+    if os.path.abspath(os.path.dirname(out)) == os.path.abspath(src_dir()):
+        raise SystemExit(f"calibrate: {out} is in the committed directory")
+    save_pickle(out, stamp_calibration(vp, proto))
+    pct = {f"p{p:02d}": float(np.percentile(id_aff, p))
+           for p in (1, 2, 5, 10, 50)}
+    with open(out + ".meta.json", "w") as f:
+        json.dump({"stage": "calibrate", "args": vars_of(args),
+                   "source": os.path.relpath(src, REPO),
+                   "config": args.config, "card": card_line(dev),
+                   "wall_s": time.perf_counter() - t0,
+                   "id_frames": int(len(id_aff)), "id_affinity": pct,
+                   "ood_affinity": {t: {f"p{p:02d}": float(np.percentile(
+                       a, p)) for p in (1, 2, 5, 10, 50, 90)}
+                       for t, a in ood.items()}}, f, indent=1)
+    print(f"saved calibration prototype into {out}")
+    return proto, id_aff, ood
+
+
+# ---------------------------------------------------------------------------
+# dagger_note (scripts/verification_scaling.py:1480-1518)
+# ---------------------------------------------------------------------------
+
+
+def cmd_dagger_note(args):
+    """Record one DAgger round in the run's `dagger_rounds`: the
+    checkpoint's training meta (`<checkpoint>.meta.json`, from the
+    artifact directory, else the committed one) beside the run's N=16 and
+    N=80 cells of `--mode`."""
+    res_path = results_path(args)
+    meta = {}
+    mpath = input_path(args.checkpoint + ".meta.json")
+    if os.path.exists(mpath):
+        with open(mpath) as f:
+            meta = json.load(f)
+    with locked_results(res_path) as results:
+        run = find_run(results, args.config, args.run_name)
+        if run is None:
+            raise SystemExit(f"dagger_note: no run ({args.config}, "
+                             f"{args.run_name}) in {res_path}")
+        cells = {(c["mode"], c["n_samples"]): c for c in run["grid"]
+                 if c.get("n_rephrases", 1) == 1}
+        entry = {"round": args.round,
+                 "checkpoint": args.checkpoint,
+                 "mode": args.mode,
+                 "data": meta.get("n_states"),
+                 "data_files": meta.get("data_files"),
+                 "val_regret": meta.get("val_regret"),
+                 "n16": cells.get((args.mode, 16)),
+                 "n80": cells.get((args.mode, 80))}
+        rounds = [r for r in run.get("dagger_rounds", [])
+                  if r["round"] != args.round]
+        rounds.append(entry)
+        rounds.sort(key=lambda r: r["round"])
+        run["dagger_rounds"] = rounds
+    print(f"dagger round {args.round} ({args.mode}): "
+          f"val_regret={meta.get('val_regret')} "
+          f"data={meta.get('n_states')} states "
+          f"n16={entry['n16'] and entry['n16']['success_rate']} "
+          f"n80={entry['n80'] and entry['n80']['success_rate']}")
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# report (scripts/verification_scaling.py:1526-1838)
+# ---------------------------------------------------------------------------
+
+
+REPRODUCE = [
+    "",
+    "Reproduce: `python scripts/torch_verification_scaling.py all "
+    "--config fast` on the card, `--device cpu` on the CPU (stages: demos, "
+    "train_policy, rankdata, pretrain_backbone, train_verifier, eval, "
+    "report; the committed trees: `eval`, then `report`). CI regression: "
+    "`tests/test_torch_verification_scaling.py`."]
+
+
+def render_report(res: dict, diag, reproduce, extra=None) -> str:
+    """The JAX script's report of a results dict in its schema (`grid`,
+    `ood_grid`, `rephrase_policy_grid`, `ood_ablation_nodefer`,
+    `dagger_rounds`, `instruction_switch_K8`, `task`, `trials_per_cell`) and
+    `ood_diagnostics.json`'s dict (or None), line for line but for two
+    places: the reference's README is cited by its path in the reference
+    repository, and `reproduce` replaces the Reproduce paragraph;
+    `extra` lines go before it."""
+    cells = {(c["mode"], c["n_samples"], c.get("n_rephrases", 1)): c
+             for c in res["grid"]}
+    ns = sorted({c["n_samples"] for c in res["grid"]
+                 if c["mode"] != "first" and c.get("n_rephrases", 1) == 1})
+
+    def fmt(c):
+        if c is None:
+            return "—"
+        return (f"{100 * c['success_rate']:.0f}% "
+                f"[{100 * c['ci95'][0]:.0f}, {100 * c['ci95'][1]:.0f}]")
+
+    lines = [
+        "# Verification scaling on the fake-env benchmark",
+        "",
+        "The repo's analog of the reference's headline table"
+        " (`reference/README.md:136-155`): a tiny pi0"
+        " behaviour-cloned from a noisy scripted expert, a tiny"
+        " contrastively-trained verifier ensemble, and the real batched"
+        " CoVer engine, on the scriptable `FakeWidowXEnv`"
+        f" (task `{res['task']}`, {res['trials_per_cell']} episodes/cell,"
+        " 95% Wilson CIs).",
+        "",
+        "Selection modes (`CoVerConfig.selection`): **verifier** = the"
+        " CoVer loop (two-stage verified selection + gripper vote);"
+        " **random** = a uniformly random candidate executes (statistically"
+        " identical to plain pi0 — candidates are iid); **first** ="
+        " candidate 0 (plain pi0, shares the verifier arm's noise stream);"
+        " **oracle** = privileged selection by true env progress"
+        " (`fake_expert.chunk_quality`) — the ceiling a perfect scorer"
+        " would reach through the same sample->select loop.",
+        "",
+        "| selection | " + " | ".join(f"N={n}" for n in ns) + " |",
+        "|---|" + "---|" * len(ns),
+    ]
+    # every mode of the grid; alternate-checkpoint rows (--record-mode)
+    # slot in after verifier
+    fixed = ["first", "random", "verifier", "oracle"]
+    extra_modes = sorted({c["mode"] for c in res["grid"]} - set(fixed))
+    for mode in fixed[:3] + extra_modes + fixed[3:]:
+        row = [fmt(cells.get((mode, n, 1)) or
+                   (cells.get((mode, 1, 1)) if mode == "first" else None))
+               for n in ns]
+        lines.append(f"| {mode} | " + " | ".join(row) + " |")
+    f1 = cells.get(("first", 1, 1))
+    if f1:
+        lines += ["", f"pi0 baseline (N=1): {fmt(f1)}."]
+    v16, r16 = cells.get(("verifier", 16, 1)), cells.get(("random", 16, 1))
+    if v16 and r16:
+        lines += ["",
+                  f"At N=16 the verifier arm reaches "
+                  f"{100 * v16['success_rate']:.0f}% vs "
+                  f"{100 * r16['success_rate']:.0f}% for random selection "
+                  f"({v16['successes']}/{v16['episodes']} vs "
+                  f"{r16['successes']}/{r16['episodes']})."]
+    # rephrase axis (the reference's 8-rephrase x 5-sample protocol)
+    k8 = [(m, cells.get((m, 5, 8))) for m in ("random", "verifier")]
+    if any(c for _, c in k8):
+        lines += ["", "## Rephrase axis (K=8, the reference's "
+                      "protocol shape)", "",
+                  "| selection | N=5, K=1 | N=5 x K=8 | N=16, K=1 "
+                  "| N=16 x K=8 |", "|---|---|---|---|---|"]
+        for m, c in k8:
+            lines.append(
+                f"| {m} | {fmt(cells.get((m, 5, 1)))} | {fmt(c)} "
+                f"| {fmt(cells.get((m, 16, 1)))} "
+                f"| {fmt(cells.get((m, 16, 8)))} |")
+        sw = res.get("instruction_switch_K8")
+        if sw:
+            lines += ["",
+                      f"Stage-2 language selection switched the "
+                      f"instruction in {sw['episodes_with_switch']}/"
+                      f"{sw['episodes']} episodes "
+                      f"({100 * sw['switch_rate']:.0f}%); per-instruction "
+                      "win counts in results.json."]
+    # the paired rephrase-policy sub-experiment
+    rp = res.get("rephrase_policy_grid")
+    if rp:
+        rcells = {(c["mode"], c["n_samples"], c.get("n_rephrases", 1)): c
+                  for c in rp["cells"]}
+        lines += [
+            "", "## Rephrase-augmented policy (paired sub-experiment)", "",
+            "The reference's best ID column pairs rephrase eval with a"
+            " policy FINETUNED on rephrased instructions"
+            " (`INTACT-pi0-rephrase-bridge`, task_augmentation.py:27-80)."
+            " These cells re-measure the key grid entries with"
+            f" `{rp.get('policy', 'policy_rephrase.pkl')}` — the same BC"
+            " recipe trained under the vendored rephrase store's"
+            " instruction variants — against the SAME committed verifier.",
+            "",
+            "| cell | base policy | rephrase-augmented policy |",
+            "|---|---|---|"]
+        show = [("first", 1, 1), ("random", 16, 1), ("verifier", 5, 1),
+                ("verifier", 16, 1), ("random", 5, 8), ("verifier", 5, 8),
+                ("verifier", 16, 8), ("oracle", 16, 1)]
+        for m, n, k in show:
+            if rcells.get((m, n, k)) is None:
+                continue
+            tag = f"{m} N={n}" + (f" ×K={k}" if k > 1 else "")
+            lines.append(f"| {tag} | {fmt(cells.get((m, n, k)))} "
+                         f"| {fmt(rcells.get((m, n, k)))} |")
+        rsw = rp.get("instruction_switch_K8")
+        if rsw:
+            lines += ["", f"Instruction-switch rate at K=8 under the"
+                          f" rephrase policy: {rsw['episodes_with_switch']}"
+                          f"/{rsw['episodes']} episodes"
+                          f" ({100 * rsw['switch_rate']:.0f}%)."]
+
+    # OOD appearance variants (the reference's OOD table shape)
+    ood = {(c["task"], c["mode"], c["n_samples"]): c
+           for c in res.get("ood_grid", [])}
+    if ood:
+        ood_tasks = sorted({t for t, _, _ in ood})
+        tiers = [
+            ("unseen appearance (colors/sizes — the round-4 OOD "
+             "definition)",
+             [t for t in ood_tasks if t.endswith("_appearance")]),
+            ("unseen geometry + clutter (novel shapes, a ring "
+             "receptacle, distractor blobs — the round-5 hard axes)",
+             [t for t in ood_tasks if not t.endswith("_appearance")]),
+        ]
+        lines += [
+            "", "## OOD variants",
+            "",
+            "Policy, backbone, and verifier heads are trained ONLY on the"
+            " ID task; these cells shift the rendered scene"
+            " (`fake_env.TASK_APPEARANCES` — the cartoon of the"
+            " reference's unseen-object scenes) and the instruction."]
+        ood_extra = sorted({m for _, m, _ in ood}
+                           - {"first", "random", "verifier", "oracle"})
+        for title, tasks in tiers:
+            if not tasks:
+                continue
+            hdr_extra = "".join(f"| {m} N=16 " for m in ood_extra)
+            lines += [
+                "", f"### {title}", "",
+                "| task | first (pi0) | random N=16 | verifier N=16 "
+                + hdr_extra + "| oracle N=16 |",
+                "|---|" + "---|" * (4 + len(ood_extra))]
+            for t in tasks:
+                short = t.replace("widowx_", "").replace("_appearance", "")
+                cols = "".join(f"| {fmt(ood.get((t, m, 16)))} "
+                               for m in ood_extra)
+                lines.append(
+                    f"| {short} | {fmt(ood.get((t, 'first', 1)))} "
+                    f"| {fmt(ood.get((t, 'random', 16)))} "
+                    f"| {fmt(ood.get((t, 'verifier', 16)))} "
+                    + cols
+                    + f"| {fmt(ood.get((t, 'oracle', 16)))} |")
+
+            def _avg(mode, n, _tasks=tasks):
+                cs = [ood.get((t, mode, n)) for t in _tasks]
+                cs = [c for c in cs if c]
+                return (f"{100 * np.mean([c['success_rate'] for c in cs]):.0f}%"
+                        if len(cs) == len(_tasks) else "—")
+            lines.append(
+                f"| **average** | {_avg('first', 1)} "
+                f"| {_avg('random', 16)} | {_avg('verifier', 16)} "
+                + "".join(f"| {_avg(m, 16)} " for m in ood_extra)
+                + f"| {_avg('oracle', 16)} |")
+        # every arm that scores below the no-selection baseline is named
+        harm = []
+        for t in ood_tasks:
+            base = ood.get((t, "first", 1))
+            for m in {m for _, m, _ in ood} - {"first", "random", "oracle"}:
+                c = ood.get((t, m, 16))
+                if base and c and c["success_rate"] < base["success_rate"]:
+                    sep = ("non-overlapping CIs"
+                           if c["ci95"][1] < base["ci95"][0]
+                           else "overlapping CIs")
+                    harm.append(
+                        f"`{m}` on {t.replace('widowx_', '')} "
+                        f"({100 * c['success_rate']:.0f}% vs baseline "
+                        f"{100 * base['success_rate']:.0f}%, {sep})")
+        if harm:
+            lines += [
+                "", "**Active harm (known negative):** " + "; ".join(harm)
+                + ". A selection arm scoring below candidate-0 execution"
+                " means its argmax is anti-correlated with progress on"
+                " that appearance — worse than not verifying at all. These"
+                " cells are kept in `results.json` as an honest record;"
+                " the arm is NOT a recommended configuration, and the CI"
+                " regression suite forbids this class of regression for"
+                " the default `verifier` arm"
+                " (`tests/test_verification_scaling.py`)."]
+    # the verifier arm without the phase-aware deference gate
+    nodefer = res.get("ood_ablation_nodefer")
+    if nodefer and ood:
+        nd = {(c["task"], c["n_samples"]): c for c in nodefer}
+        any_defer = next((c for c in res.get("ood_grid", [])
+                          if c["mode"] == "verifier"
+                          and "defer_threshold" in c), None)
+        thr = any_defer and any_defer["defer_threshold"]
+        lines += [
+            "", "### Ablation: verification without phase-aware deference",
+            "",
+            "The shipping verifier arm defers APPROACH-phase picks to"
+            " candidate 0 when the scene's affinity to the checkpoint's ID"
+            " calibration prototype is below the threshold"
+            + (f" ({thr})" if thr is not None else "")
+            + " (`CoVerConfig.defer_threshold`, engine step 7b) — a"
+            " know-when-you-don't-know fallback generalising the"
+            " reference's absolute-score stage-1 gate"
+            " (run_simpler_eval_with_openpi.py:346-365). Without it, the"
+            " verifier's approach-phase argmax on unfamiliar scenes is"
+            " ANTI-correlated with progress (self-induced state drift;"
+            " mean pick rank 9.2/16 on zucchini) and actively harms:", "",
+            "| task | verifier N=16 (no deference) | verifier N=16 "
+            "(shipping) | first (pi0) |", "|---|---|---|---|"]
+        for t in sorted({t for t, _ in nd}):
+            short = t.replace("widowx_", "")
+            lines.append(
+                f"| {short} | {fmt(nd.get((t, 16)))} "
+                f"| {fmt(ood.get((t, 'verifier', 16)))} "
+                f"| {fmt(ood.get((t, 'first', 1)))} |")
+
+    # the DAgger-round curve
+    rounds = res.get("dagger_rounds")
+    if rounds:
+        lines += [
+            "", "## DAgger rounds (ranking data recollected under the "
+            "deployed verifier's own selection)", "",
+            "| round | data (ranked states) | val_regret | verifier N=16 "
+            "| verifier N=80 |", "|---|---|---|---|---|"]
+        for r in rounds:
+            lines.append(
+                f"| {r['round']} | {r.get('data', '—')} "
+                f"| {r.get('val_regret', '—')} "
+                f"| {fmt(r.get('n16'))} | {fmt(r.get('n80'))} |")
+
+    # language sensitivity (wrong-noun rejection)
+    if diag is not None:
+        lang = diag.get("lang", {})
+        rows = [(k, v) for k, v in lang.items() if isinstance(v, dict)
+                and "noun_sensitivity" in v]
+        if rows:
+            lines += [
+                "", "## Language sensitivity (noun grounding)", "",
+                f"On {lang.get('slates', '?')} grounded domain-randomized"
+                " slates (`ood_diagnostics.py lang`): selection gain over"
+                " random when the verifier scores under the recorded"
+                " shape-noun instruction vs the SAME slate with the object"
+                " noun swapped to a different shape's noun. A positive gap"
+                " means the score READS the instruction — the cartoon of"
+                " the reference's wrong-instruction rejection.", "",
+                "| checkpoint | gain (correct noun) | gain (wrong noun) "
+                "| gain (ID instruction) | noun sensitivity |",
+                "|---|---|---|---|---|"]
+            for k, v in rows:
+                lines.append(
+                    f"| {k} | {v['grounded']['vs_random_gain']} "
+                    f"| {v['wrong_noun']['vs_random_gain']} "
+                    f"| {v['id_instruction']['vs_random_gain']} "
+                    f"| **{v['noun_sensitivity']}** |")
+
+    v16, r16 = cells.get(("verifier", 16, 1)), cells.get(("random", 16, 1))
+    o40 = cells.get(("oracle", 40, 1))
+    if v16 and r16 and v16["ci95"][0] > r16["ci95"][1]:
+        lines += [
+            "", "## Interpretation", "",
+            "**Learned verification scaling works end-to-end.** The"
+            " trained verifier — no privileged inputs at eval time —"
+            " turns candidate count into success through the real engine"
+            " (two-stage gate, group-mean language selection, gripper"
+            " vote), beating random selection at N=16 with"
+            " non-overlapping 95% CIs and degrading nowhere (the round-3"
+            " from-scratch verifier was <= random everywhere and"
+            " collapsed at N=40). What closed the gap, in order of"
+            " impact: (1) ranking data collected THROUGH the engine's own"
+            " batched propose/select programs at 25x scale (1500"
+            " episodes, ~13k candidate slates) with an execution mix that"
+            " reaches late-episode release states; (2) in-domain"
+            " localisation pretraining of the vision tower"
+            " (`pretrain_backbone` — the synthetic stand-in for the"
+            " pretrained SigLIP2 the reference freezes), after which the"
+            " backbone is FROZEN exactly as the reference freezes its"
+            " SigLIP2 (finetune_trajectory_bridge_ddp.py:189-191);"
+            " (3) fp32 head/backbone weights and patch-8 towers sized to"
+            " localise the scene. The oracle arm — the same engine"
+            " programs with injected privileged scores — still marks the"
+            " ceiling"
+            + (f" ({100 * o40['success_rate']:.0f}% at N=40)."
+               if o40 else ".") + " The remaining verifier-to-oracle gap"
+            " is scorer quality, attackable with more data/DAgger rounds"
+            " (`rankdata --dagger-params`).",
+        ]
+    lines += list(extra or []) + list(reproduce)
+    return "\n".join(lines) + "\n"
+
+
+def report_results(results: dict, config: str, name=None) -> dict:
+    """The JAX report's results dict from the port's runs of `config`: the
+    run `name` for the grid and the OOD grid (and its `dagger_rounds`),
+    the run `rephrase_policy` as `rephrase_policy_grid`, and, where a run
+    `defer` has OOD verifier cells, those as the shipping verifier arm and
+    the run `name`'s as `ood_ablation_nodefer`."""
+    main = find_run(results, config, name)
+    if main is None:
+        raise SystemExit(f"report: no run ({config}, {name}) in the results")
+    eps = [c["episodes"] for c in main["grid"]] or [0]
+    res = {"task": results.get("task", TASK), "grid": main["grid"],
+           "trials_per_cell": max(set(eps), key=eps.count),
+           "instruction_switch_K8": main.get("instruction_switch_K8"),
+           "ood_grid": main.get("ood_grid", [])}
+    if main.get("dagger_rounds"):
+        res["dagger_rounds"] = main["dagger_rounds"]
+    rp = find_run(results, config, "rephrase_policy")
+    if rp and rp["grid"]:
+        res["rephrase_policy_grid"] = {
+            "policy": os.path.basename(rp.get("policy_params",
+                                              "policy_rephrase.pkl")),
+            "cells": rp["grid"],
+            "instruction_switch_K8": rp.get("instruction_switch_K8")}
+    defer = find_run(results, config, "defer")
+    shipping = [c for c in (defer or {}).get("ood_grid", [])
+                if c["mode"] == "verifier"]
+    if shipping:
+        res["ood_ablation_nodefer"] = [c for c in res["ood_grid"]
+                                       if c["mode"] == "verifier"]
+        res["ood_grid"] = [c for c in res["ood_grid"]
+                           if c["mode"] != "verifier"] + shipping
+    return res
+
+
+def beside_jax_lines(results: dict, config: str) -> list:
+    """The report's added section: every cell of `config`'s runs that has a
+    JAX cell, with the port's successes, JAX's and the two-proportion z."""
+    lines = ["", "## The port beside the JAX package", "",
+             f"Every cell of the port's `{config}` runs that the JAX package"
+             " committed, on the card named in each run: the port's"
+             " successes, JAX's, and the pooled two-proportion z (|z| >="
+             " 2.58 is a difference at the 1% level).", "",
+             "| run | task | cell | port | JAX | z |",
+             "|---|---|---|---|---|---|"]
+    for run in results["runs"]:
+        if run["config"] != config:
+            continue
+        for c in run["grid"] + run.get("ood_grid", []):
+            if c.get("jax_successes") is None:
+                continue
+            tag = f"{c['mode']} N={c['n_samples']}" + (
+                f" ×K={c['n_rephrases']}" if c.get("n_rephrases", 1) > 1
+                else "")
+            lines.append(
+                f"| {run.get('name') or 'default'} "
+                f"| {c.get('task', TASK).replace('widowx_', '')} | {tag} "
+                f"| {c['successes']}/{c['episodes']} "
+                f"| {c['jax_successes']}/{c['jax_episodes']} "
+                f"| {c['z_vs_jax']:+.2f} |")
+    return lines
+
+
+def cmd_report(args):
+    """The JAX script's report of the port's results, beside JAX's cells,
+    written beside the results file as `report.md` (never into docs/)."""
+    res_path = results_path(args)
+    with open(res_path) as f:
+        results = json.load(f)
+    diag = None                   # the config's section of the diagnostics
+    diag_path = os.path.join(os.path.dirname(res_path), "ood_diagnostics.json")
+    if os.path.exists(diag_path):
+        with open(diag_path) as f:
+            diag = json.load(f).get(args.config)
+    md = render_report(report_results(results, args.config, args.run_name),
+                       diag, REPRODUCE,
+                       extra=beside_jax_lines(results, args.config))
+    path = os.path.join(os.path.dirname(res_path), "report.md")
+    with open(path, "w") as f:
+        f.write(md)
+    print(md)
+    print(f"wrote {path}")
+    return path
+
+
+# ---------------------------------------------------------------------------
+# all (scripts/verification_scaling.py:2087-2113)
+# ---------------------------------------------------------------------------
+
+
+def all_stages(art: str) -> list:
+    """The JAX `all` pipeline's stage argv, in order. `eval` names the
+    trees the stages trained (the port's `eval` defaults to the committed
+    trees, the JAX script's to its artifact directory's)."""
+    return [["demos"],
+            ["train_policy"],
+            ["rankdata"],
+            ["pretrain_backbone"],
+            ["train_verifier"],
+            # DAgger round: ranking states recollected under the first
+            # verifier's own selection, then both files
+            ["rankdata", "--dagger-params",
+             os.path.join(art, "verifier_params.pkl"),
+             "--out", "rankdata2.npz"],
+            ["train_verifier", "--data", "rankdata.npz", "rankdata2.npz"],
+            ["eval", "--policy-params", "policy_params.pkl",
+             "--verifier-params", "verifier_params.pkl"],
+            ["report"]]
+
+
+def cmd_all(args, parser):
+    """Each stage re-parsed from its own argv, so that every default
+    applies, with the common flags passed on."""
+    art = os.path.abspath(art_dir())
+    common = ["--config", args.config, "--art-dir", art]
+    if args.device:
+        common += ["--device", args.device]
+    for argv in all_stages(art):
+        stage_args = parser.parse_args(argv + common)
+        stage_args.fn(stage_args)
 
 
 # ---------------------------------------------------------------------------
@@ -1857,9 +2541,29 @@ def main(argv=None):
                    help="keep this run's earlier cells (a cell run again "
                         "replaces its earlier value); without it the run "
                         "starts empty")
+    e.add_argument("--skip-existing", action="store_true",
+                   help="with --merge: keep every existing cell of the run "
+                        "and run only the missing ones")
     e.add_argument("--ood", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="also run the OOD appearance-variant cells")
+    e.add_argument("--ood-tasks", nargs="*", default=None,
+                   help="restrict the OOD cells to these task names")
+    e.add_argument("--rescore-threshold", type=float, default=None,
+                   help="override the stage-1 gate threshold (default "
+                        "0.1; inf disables the gate); a knob: name the run")
+    e.add_argument("--gripper-vote", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="override the verifier arm's gripper majority "
+                        "vote; a knob: name the run")
+    e.add_argument("--defer-threshold", type=float, default=None,
+                   help="phase-aware deference threshold of the verifier "
+                        "arm (CoVerConfig.defer_threshold); the verifier "
+                        "tree must carry `calibrate`'s prototype; a knob: "
+                        "name the run")
+    e.add_argument("--results", default=None,
+                   help="results file (default: beside the trees, see "
+                        "above)")
     e.add_argument("--verifier-params", default=None,
                    help="verifier pkl (default: the committed JAX tree)")
     e.add_argument("--policy-params", default=None,
@@ -1875,10 +2579,48 @@ def main(argv=None):
                    help="int8 (w8a8) policy, and verifier backbone under "
                         "int8_full, through ops/quant")
     e.set_defaults(fn=cmd_eval)
+
+    cb = sub.add_parser("calibrate", parents=[common],
+                        help="stamp the ID affinity prototype into a "
+                             "verifier tree")
+    cb.add_argument("--verifier-params", default="verifier_params.pkl")
+    cb.add_argument("--out", default=None,
+                    help="write the stamped tree here (default: the same "
+                         "name in the artifact directory)")
+    cb.add_argument("--frames", type=int, default=512,
+                    help="ID rankdata frames for the prototype")
+    cb.add_argument("--ood-tasks", nargs="*", default=None)
+    cb.add_argument("--ood-envs", type=int, default=40,
+                    help="episodes per OOD task for the diagnostic "
+                         "affinity distribution")
+    cb.set_defaults(fn=cmd_calibrate)
+
+    dn = sub.add_parser("dagger_note", parents=[common],
+                        help="record one DAgger round in a run")
+    dn.add_argument("--round", type=int, required=True)
+    dn.add_argument("--checkpoint", required=True,
+                    help="verifier checkpoint whose .meta.json supplies "
+                         "val_regret / data size")
+    dn.add_argument("--mode", default="verifier",
+                    help="grid mode whose N=16/N=80 cells this round "
+                         "produced (e.g. verifier_dag via --record-mode)")
+    dn.add_argument("--run-name", default=None)
+    dn.add_argument("--results", default=None)
+    dn.set_defaults(fn=cmd_dagger_note)
+
+    r = sub.add_parser("report", parents=[common],
+                       help="the markdown report beside the results")
+    r.add_argument("--run-name", default=None)
+    r.add_argument("--results", default=None)
+    r.set_defaults(fn=cmd_report)
+
+    a = sub.add_parser("all", parents=[common],
+                       help="every stage, as the JAX script's all")
+    a.set_defaults(fn=lambda args: cmd_all(args, ap))
     args = ap.parse_args(argv)
     if args.art_dir:
         os.environ["VS_TORCH_ART_DIR"] = os.path.abspath(args.art_dir)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

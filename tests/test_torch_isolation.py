@@ -29,7 +29,12 @@ def _modules():
 
 
 def _sources():
+    """chip_smoke.py, every file of the package and the port's scripts
+    (`scripts/torch_*`)."""
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    out += sorted(os.path.join(scripts, f) for f in os.listdir(scripts)
+                  if f.startswith("torch_"))
     for dirpath, _, files in os.walk(PKG_DIR):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith((".py", ".cu", ".cuh"))]

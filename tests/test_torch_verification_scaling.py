@@ -259,9 +259,11 @@ def test_eval_on_the_cpu_writes_the_cells(scripts, tmp_path, monkeypatch):
 
 
 def test_script_imports_without_jax(tmp_path):
-    """The script's import, its loader and every training stage (tiny
-    sizes, into a tmp artifact directory) with `jax`, the JAX package and
-    `ml_dtypes` blocked; the tree it writes names `ml_dtypes.bfloat16`."""
+    """The script's import, its loader, every training stage and
+    `calibrate` (tiny sizes, into a tmp artifact directory), and
+    `scripts/torch_ood_diagnostics.py probe` and `scripts/torch_roofline.py`
+    with `jax`, the JAX package and `ml_dtypes` blocked; the tree it writes
+    names `ml_dtypes.bfloat16`."""
     code = ("import sys\n"
             "for m in ('jax', 'cover_vla_tpu', 'ml_dtypes'):\n"
             "    sys.modules[m] = None\n"
@@ -283,6 +285,23 @@ def test_script_imports_without_jax(tmp_path):
             "s.main(['train_verifier', *cpu, '--steps', '1', '--batch', '2'])\n"
             "with open(s.output_path('policy_params.pkl'), 'rb') as f:\n"
             "    assert b'ml_dtypes' in f.read()\n"
+            "s.main(['calibrate', *cpu, '--frames', '4', '--ood-envs', '1',\n"
+            "        '--ood-tasks', 'widowx_redbull_on_plate'])\n"
+            "def load(name):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            f"        name, {os.path.dirname(SCRIPT)!r} + '/' + name + '.py')\n"
+            "    m = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(m)\n"
+            "    return m\n"
+            "od = load('torch_ood_diagnostics')\n"
+            "od.main(['probe', *cpu, '--probe-frames', '8', '--probe-steps',\n"
+            "         '2', '--frames-per-domain', '1', '--verifiers',\n"
+            "         'verifier_params.pkl', '--art-dir', s.art_dir()])\n"
+            "rf = load('torch_roofline')\n"
+            "try:\n"
+            "    rf.roofline({'traceEvents': []}, 1)\n"
+            "except RuntimeError:\n"
+            "    pass\n"
             "assert not any(k == 'jax' or k.startswith(('jax.',\n"
             "    'cover_vla_tpu.', 'ml_dtypes')) for k, v in\n"
             "    sys.modules.items() if v is not None)\n")
@@ -297,8 +316,10 @@ def test_script_imports_without_jax(tmp_path):
 
 
 def _port_runs():
+    """Each config's default run (named runs hold other trees or knobs)."""
     with open(PORT_RESULTS) as f:
-        return {r["config"]: r for r in json.load(f)["runs"]}
+        return {r["config"]: r for r in json.load(f)["runs"]
+                if r.get("name") is None}
 
 
 @pytest.mark.parametrize("config", ["eager", "fast", "all_kernel"])
