@@ -10,6 +10,7 @@ decodes.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -23,6 +24,9 @@ from cover_vla_tpu_torch.device import resolve_device
 from cover_vla_tpu_torch.engine.verified_step import (
     make_propose_step_batched, make_select_step_batched,
     make_verified_step_batched)
+from cover_vla_tpu_torch.utils import monitor
+
+_ENGINE_SEQ = itertools.count()
 
 
 class BatchedCoVerEngine:
@@ -75,6 +79,8 @@ class BatchedCoVerEngine:
             self._step_fn = step_fn or make_verified_step_batched(
                 pcfg, vcfg, ccfg, self.stats, device=self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._seq = next(_ENGINE_SEQ)   # the span ids of its boundaries
+        self._boundaries = 0
         self.reset([""] * num_episodes)
 
     def reset(self, tasks: Sequence[str]):
@@ -117,70 +123,92 @@ class BatchedCoVerEngine:
         the current CUDA stream and ends in no host read, so the caller can
         overlap host work (e.g. stepping another cohort's simulators) with
         it; the resolver's device-to-host copies are the one
-        synchronisation."""
+        synchronisation. A chunk boundary and its resolver are the spans
+        `engine.step_async` and `engine.resolve`, both with this engine's
+        sequence number and the boundary's index as their ids."""
         chunk = self.pcfg.chunk_size
         if self._tick % chunk == 0:
-            k, t = self.ccfg.n_rephrases, self.pcfg.tokenizer_max_length
-            lang_tokens = np.zeros((self.E, k, t), np.int32)
-            lang_masks = np.zeros((self.E, k, t), bool)
-            vtoks = np.zeros((self.E, self.vcfg.text.context_length),
-                             np.int32)
-            for e in range(self.E):
-                toks, masks = self.policy_tok.encode_batch(self._prompts(e), t)
-                lang_tokens[e], lang_masks[e] = toks, masks
-                vt, _ = self.verifier_tok.encode_batch(
-                    [self.tasks[e]], self.vcfg.text.context_length)
-                vtoks[e] = vt[0]
+            ids = dict(engine=self._seq, boundary=self._boundaries)
+            self._boundaries += 1
+            with monitor.span("engine.step_async", **ids):
+                resolve = self._boundary_async(raw_images, proprios, ids)
+        else:
+            def resolve(actions=self._exec_queue.pop(0),
+                        verif=self._verif_queue.pop(0)):
+                self._push_history(verif)
+                return actions
+        self._tick += 1
+        return resolve
 
-            if self.ccfg.selection == "injected":
-                if self.score_fn is None:
-                    raise ValueError(
-                        "selection='injected' needs engine.score_fn "
-                        "(exec_chunks [E,K*N,chunk,7] -> scores [E,K*N])")
-                proposal = self._propose_fn(
-                    self.policy_params,
-                    np.ascontiguousarray(raw_images),
-                    np.asarray(proprios, np.float32),
-                    lang_tokens, lang_masks,
-                    self._history, self._history_len,
-                    generator=self._generator)
+    def _tokenize(self):
+        k, t = self.ccfg.n_rephrases, self.pcfg.tokenizer_max_length
+        lang_tokens = np.zeros((self.E, k, t), np.int32)
+        lang_masks = np.zeros((self.E, k, t), bool)
+        vtoks = np.zeros((self.E, self.vcfg.text.context_length), np.int32)
+        for e in range(self.E):
+            toks, masks = self.policy_tok.encode_batch(self._prompts(e), t)
+            lang_tokens[e], lang_masks[e] = toks, masks
+            vt, _ = self.verifier_tok.encode_batch(
+                [self.tasks[e]], self.vcfg.text.context_length)
+            vtoks[e] = vt[0]
+        return lang_tokens, lang_masks, vtoks
 
-                def res_thunk():
-                    import inspect
-                    exec_np = proposal.exec_chunks.cpu().numpy()
-                    # collectors/diagnostic scorers may also want the
-                    # engine-exact trajectories etc. — opt in by declaring
-                    # a `proposal` parameter
-                    sig = inspect.signature(self.score_fn)
-                    if "proposal" in sig.parameters:
-                        scores = self.score_fn(exec_np, proposal=proposal)
-                    else:
-                        scores = self.score_fn(exec_np)
-                    return self._select_fn(
-                        np.asarray(scores, np.float32),
-                        proposal.exec_chunks,
-                        proposal.verifier_chunks, proposal.raw_grippers)
-            else:
-                # enqueued only: res0 holds device tensors; no host sync yet
-                res0 = self._step_fn(
-                    self.policy_params, self.verifier_params,
-                    np.ascontiguousarray(raw_images),
-                    np.asarray(proprios, np.float32),
-                    lang_tokens, lang_masks, vtoks,
-                    self._history, self._history_len,
-                    generator=self._generator)
+    def _boundary_async(self, raw_images, proprios, ids):
+        """A chunk boundary's device work, enqueued; -> its resolver."""
+        chunk = self.pcfg.chunk_size
+        with monitor.span("engine.tokenize"):
+            lang_tokens, lang_masks, vtoks = self._tokenize()
 
-                def res_thunk():
-                    return res0
-            prompts_at_dispatch = [self._prompts(e) for e in range(self.E)]
+        if self.ccfg.selection == "injected":
+            if self.score_fn is None:
+                raise ValueError(
+                    "selection='injected' needs engine.score_fn "
+                    "(exec_chunks [E,K*N,chunk,7] -> scores [E,K*N])")
+            proposal = self._propose_fn(
+                self.policy_params,
+                np.ascontiguousarray(raw_images),
+                np.asarray(proprios, np.float32),
+                lang_tokens, lang_masks,
+                self._history, self._history_len,
+                generator=self._generator)
 
-            def resolve():
+            def res_thunk():
+                import inspect
+                exec_np = monitor.to_host(proposal.exec_chunks).numpy()
+                # collectors/diagnostic scorers may also want the
+                # engine-exact trajectories etc. — opt in by declaring
+                # a `proposal` parameter
+                sig = inspect.signature(self.score_fn)
+                if "proposal" in sig.parameters:
+                    scores = self.score_fn(exec_np, proposal=proposal)
+                else:
+                    scores = self.score_fn(exec_np)
+                return self._select_fn(
+                    np.asarray(scores, np.float32),
+                    proposal.exec_chunks,
+                    proposal.verifier_chunks, proposal.raw_grippers)
+        else:
+            # enqueued only: res0 holds device tensors; no host sync yet
+            res0 = self._step_fn(
+                self.policy_params, self.verifier_params,
+                np.ascontiguousarray(raw_images),
+                np.asarray(proprios, np.float32),
+                lang_tokens, lang_masks, vtoks,
+                self._history, self._history_len,
+                generator=self._generator)
+
+            def res_thunk():
+                return res0
+        prompts_at_dispatch = [self._prompts(e) for e in range(self.E)]
+
+        def resolve():
+            with monitor.span("engine.resolve", **ids):
                 res = res_thunk()
-                exec_chunks = res.exec_chunk.cpu().numpy()   # [E, chunk, 7]
-                verif_chunks = res.verifier_chunk.cpu().numpy()
-                groups = res.winner_group.cpu().numpy()
-                stage2 = res.used_stage2.cpu().numpy()
-                self.last_scores = res.max_score.cpu().numpy()
+                exec_chunks = monitor.to_host(res.exec_chunk).numpy()
+                verif_chunks = monitor.to_host(res.verifier_chunk).numpy()
+                groups = monitor.to_host(res.winner_group).numpy()
+                stage2 = monitor.to_host(res.used_stage2).numpy()
+                self.last_scores = monitor.to_host(res.max_score).numpy()
                 for e in range(self.E):
                     if self.done[e]:
                         continue
@@ -194,12 +222,6 @@ class BatchedCoVerEngine:
                                      for i in range(1, chunk)]
                 self._push_history(verif_chunks[:, 0])
                 return exec_chunks[:, 0]
-        else:
-            def resolve(actions=self._exec_queue.pop(0),
-                        verif=self._verif_queue.pop(0)):
-                self._push_history(verif)
-                return actions
-        self._tick += 1
         return resolve
 
     def _push_history(self, verif_actions: np.ndarray):

@@ -20,8 +20,9 @@ argument has a leading E axis):
      language group) and the phase-aware deference gate;
   8. gripper majority vote within the winning language group.
 
-Stages 1-5 are also exposed alone (`make_propose_step_batched`) with the
-selection half over an externally supplied score vector
+Each stage is a span of `utils.monitor` (recorded only when recording is
+on). Stages 1-5 are also exposed alone (`make_propose_step_batched`) with
+the selection half over an externally supplied score vector
 (`make_select_step_batched`): the injected-score selection mode.
 `make_verified_step_sharded` splits the episodes over the processes of a
 mesh.
@@ -44,6 +45,7 @@ from cover_vla_tpu_torch.ops.image import (
 from cover_vla_tpu_torch.ops.sampling import sample_noise
 from cover_vla_tpu_torch.parallel.mesh import batch_sharding, gather_rows
 from cover_vla_tpu_torch.utils.geometry import euler_to_rotvec
+from cover_vla_tpu_torch.utils.monitor import span, to_device
 
 
 class VerifiedStepResult(NamedTuple):
@@ -146,10 +148,6 @@ def vote_gripper(exec_chunks: torch.Tensor, exec_chunk: torch.Tensor,
     return out
 
 
-def _as(x, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=dtype, device=device)
-
-
 class ProposeResult(NamedTuple):
     exec_chunks: torch.Tensor      # [E, K*N, chunk, 7] execution-format candidates
     verifier_chunks: torch.Tensor  # [E, K*N, chunk, 7] verifier-format candidates
@@ -161,62 +159,73 @@ def _make_propose(pcfg: Pi0Config, vcfg: VerifierConfig, ccfg: CoVerConfig,
                   stats: DatasetStatistics, dev: torch.device):
     """Stages 1-5 on `dev`, shared by the fused step and the propose step:
     propose(policy_params, raw_image, proprio, lang_tokens, lang_masks,
-    history, history_len, noise, generator) -> ProposeResult. raw_image and
-    proprio must already be tensors on `dev`."""
+    history, history_len, noise, generator) -> (ProposeResult, raw_image,
+    proprio), the last two on `dev` for the fused step's verifier half.
+    Its spans: `step.inputs` (the copies to `dev`, stages 1-2),
+    `pi0.prefix` and `pi0.denoise` (stage 3, `pi0.sample_actions`) and
+    `step.candidates` (stages 4-5)."""
     if ccfg.max_history + pcfg.chunk_size != vcfg.history_length:
         raise ValueError(
             f"verifier history_length ({vcfg.history_length}) must equal "
             f"max_history ({ccfg.max_history}) + chunk_size ({pcfg.chunk_size})")
     f32 = torch.float32
-    a_p01, a_p99 = _as(stats.action.p01, dev, f32), _as(stats.action.p99, dev, f32)
-    p_p01 = _as(stats.proprio.p01, dev, f32)
-    p_p99 = _as(stats.proprio.p99, dev, f32)
+    a_p01 = to_device(stats.action.p01, dev, f32)
+    a_p99 = to_device(stats.action.p99, dev, f32)
+    p_p01 = to_device(stats.proprio.p01, dev, f32)
+    p_p99 = to_device(stats.proprio.p99, dev, f32)
     K, N = ccfg.n_rephrases, ccfg.n_samples
 
-    def propose(policy_params: ParamTree, raw_image: torch.Tensor,
-                proprio: torch.Tensor, lang_tokens, lang_masks, history,
-                history_len, noise, generator) -> ProposeResult:
-        lang_tokens = _as(lang_tokens, dev, torch.long)
-        lang_masks = _as(lang_masks, dev, torch.bool)
-        history = _as(history, dev, f32)
-        history_len = _as(history_len, dev, torch.long)
-        E = raw_image.shape[0]
-        if lang_tokens.shape[:2] != (E, K):
-            raise ValueError(f"lang_tokens {tuple(lang_tokens.shape)} is not "
-                             f"[E={E}, K={K}, T]")
+    def propose(policy_params: ParamTree, raw_image, proprio, lang_tokens,
+                lang_masks, history, history_len, noise, generator):
+        with span("step.inputs"):
+            raw_image = to_device(raw_image, dev)
+            proprio = to_device(proprio, dev, f32)
+            lang_tokens = to_device(lang_tokens, dev, torch.long)
+            lang_masks = to_device(lang_masks, dev, torch.bool)
+            history = to_device(history, dev, f32)
+            history_len = to_device(history_len, dev, torch.long)
+            E = raw_image.shape[0]
+            if lang_tokens.shape[:2] != (E, K):
+                raise ValueError(f"lang_tokens {tuple(lang_tokens.shape)} "
+                                 f"is not [E={E}, K={K}, T]")
 
-        # 1-2. observation preprocessing ---------------------------------
-        img = _policy_image(raw_image, pcfg.vision.image_size)
-        state_norm = 2 * (proprio - p_p01) / (p_p99 - p_p01 + 1e-8) - 1
-        state = torch.zeros((E, pcfg.max_state_dim), dtype=f32, device=dev)
-        state[:, :7] = state_norm.clamp(-1, 1)
+            # 1-2. observation preprocessing -----------------------------
+            img = _policy_image(raw_image, pcfg.vision.image_size)
+            state_norm = 2 * (proprio - p_p01) / (p_p99 - p_p01 + 1e-8) - 1
+            state = torch.zeros((E, pcfg.max_state_dim), dtype=f32,
+                                device=dev)
+            state[:, :7] = state_norm.clamp(-1, 1)
+
+            shape = (E, K, N, pcfg.chunk_size, pcfg.max_action_dim)
+            noise = (sample_noise(shape, ccfg.noise_std,
+                                  generator=generator, device=dev)
+                     if noise is None else to_device(noise, dev, f32))
+            if tuple(noise.shape) != shape:
+                raise ValueError(f"noise {tuple(noise.shape)} is not {shape}")
 
         # 3. pi0: one vision tower pass per episode, E*K prefills, N
-        # candidates each --------------------------------------------------
-        shape = (E, K, N, pcfg.chunk_size, pcfg.max_action_dim)
-        noise = (sample_noise(shape, ccfg.noise_std, generator=generator,
-                              device=dev)
-                 if noise is None else _as(noise, dev, f32))
-        if tuple(noise.shape) != shape:
-            raise ValueError(f"noise {tuple(noise.shape)} is not {shape}")
+        # candidates each (the spans `pi0.prefix` and `pi0.denoise`) -------
         actions = pi0.sample_actions(
             policy_params, pcfg, img[:, None],
             torch.ones((E, pcfg.num_images), dtype=torch.bool, device=dev),
             lang_tokens.reshape(E * K, -1), lang_masks.reshape(E * K, -1),
             state.repeat_interleave(K, dim=0), num_candidates=N,
             noise=noise.reshape(E * K, N, *shape[3:]))
-        actions = actions.reshape(E, K * N, pcfg.chunk_size,
-                                  pcfg.max_action_dim)[..., :7]
 
-        # 4. both action formats ------------------------------------------
-        exec_chunks, verif_chunks, grip = decode_candidates(
-            actions, a_p01, a_p99)
+        with span("step.candidates"):
+            actions = actions.reshape(E, K * N, pcfg.chunk_size,
+                                      pcfg.max_action_dim)[..., :7]
 
-        # 5. trajectories: [E, K*N, max_history + chunk, 7] ----------------
-        traj = assemble_trajectories(verif_chunks, history, history_len,
-                                     ccfg.max_history,
-                                     vcfg.action_padding_value)
-        return ProposeResult(exec_chunks, verif_chunks, traj, grip)
+            # 4. both action formats --------------------------------------
+            exec_chunks, verif_chunks, grip = decode_candidates(
+                actions, a_p01, a_p99)
+
+            # 5. trajectories: [E, K*N, max_history + chunk, 7] ------------
+            traj = assemble_trajectories(verif_chunks, history, history_len,
+                                         ccfg.max_history,
+                                         vcfg.action_padding_value)
+        return (ProposeResult(exec_chunks, verif_chunks, traj, grip),
+                raw_image, proprio)
 
     return propose
 
@@ -240,6 +249,9 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
     random_winner int[E]: selection="random"'s picks, drawn from
     `generator` (after the noise) when absent.
     Arrays may be numpy or tensors; they are moved to `device`.
+    Its stages are the spans `step.inputs`, `pi0.prefix`, `pi0.denoise`,
+    `step.candidates`, `step.verifier_towers`, `step.verifier_heads` and
+    `step.select` (`utils.monitor`).
     """
     if ccfg.selection not in ("verifier", "random", "first"):
         raise ValueError(f"unknown selection mode {ccfg.selection!r} "
@@ -257,76 +269,83 @@ def make_verified_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
              generator: Optional[torch.Generator] = None,
              random_winner: Optional[torch.Tensor] = None
              ) -> VerifiedStepResult:
-        raw_image = _as(raw_image, dev)
-        proprio = _as(proprio, dev, f32)
+        # 1-5. preprocess, sample, decode, assemble trajectories ----------
+        (exec_chunks, verif_chunks, traj, grip), raw_image, proprio = \
+            propose(policy_params, raw_image, proprio, lang_tokens,
+                    lang_masks, history, history_len, noise, generator)
         E = raw_image.shape[0]
 
-        # 1-5. preprocess, sample, decode, assemble trajectories ----------
-        exec_chunks, verif_chunks, traj, grip = propose(
-            policy_params, raw_image, proprio, lang_tokens, lang_masks,
-            history, history_len, noise, generator)
-
-        # 6-7. verifier scoring and selection -----------------------------
+        # 6. verifier scoring -----------------------------------------------
         deferred = torch.zeros(E, dtype=torch.bool, device=dev)
         zero = torch.zeros(E, dtype=torch.long, device=dev)
-        if ccfg.selection == "verifier":
-            vimg = _verifier_image(raw_image, vcfg.vision.image_size)
-            feats = verifier.extract_features(
-                verifier_params, vcfg, vimg,
-                _as(verifier_tokens, dev, torch.long))
-            fused_it, fused_ac = verifier.ensemble_embed(
-                verifier_params, vcfg, feats, traj.reshape(E * K * N, *traj.shape[2:]))
-            scores = torch.einsum("ed,ecd->ec", fused_it,
-                                  fused_ac.reshape(E, K * N, -1))
-            winner, max_score, used_stage2 = select_from_scores(
-                scores, N, ccfg.rescore_threshold)
+        verify = ccfg.selection == "verifier"
+        if verify:
+            with span("step.verifier_towers"):
+                vimg = _verifier_image(raw_image, vcfg.vision.image_size)
+                feats = verifier.extract_features(
+                    verifier_params, vcfg, vimg,
+                    to_device(verifier_tokens, dev, torch.long))
+            with span("step.verifier_heads"):
+                fused_it, fused_ac = verifier.ensemble_embed(
+                    verifier_params, vcfg, feats,
+                    traj.reshape(E * K * N, *traj.shape[2:]))
+                scores = torch.einsum("ed,ecd->ec", fused_it,
+                                      fused_ac.reshape(E, K * N, -1))
 
-            # 7b. phase-aware deference: approach-phase picks in a scene
-            # of low affinity to the calibration prototype fall back to
-            # candidate 0; carry-phase picks stay verified
-            if ccfg.defer_threshold != float("-inf"):
-                calib = verifier_params.get("calibration")
-                if calib is None:
-                    raise ValueError(
-                        "CoVerConfig.defer_threshold is set but the "
-                        "verifier parameters have no 'calibration' entry")
-                affinity = fused_it @ calib["prototype"].float()
-                approach = proprio[:, 6] > 0.5       # raw gripper still open
-                deferred = approach & (affinity < ccfg.defer_threshold)
-                winner = torch.where(deferred, zero, winner)
-                max_score = torch.where(deferred, scores[:, 0], max_score)
-                used_stage2 = used_stage2 & ~deferred
-        else:
-            scores = torch.zeros((E, K * N), dtype=f32, device=dev)
-            max_score = torch.zeros(E, dtype=f32, device=dev)
-            used_stage2 = torch.zeros(E, dtype=torch.bool, device=dev)
-            if ccfg.selection == "first":
-                winner = zero
-            elif random_winner is not None:
-                winner = _as(random_winner, dev, torch.long)
+        # 7. selection --------------------------------------------------------
+        with span("step.select"):
+            if verify:
+                winner, max_score, used_stage2 = select_from_scores(
+                    scores, N, ccfg.rescore_threshold)
+
+                # 7b. phase-aware deference: approach-phase picks in a
+                # scene of low affinity to the calibration prototype fall
+                # back to candidate 0; carry-phase picks stay verified
+                if ccfg.defer_threshold != float("-inf"):
+                    calib = verifier_params.get("calibration")
+                    if calib is None:
+                        raise ValueError(
+                            "CoVerConfig.defer_threshold is set but the "
+                            "verifier parameters have no 'calibration' "
+                            "entry")
+                    affinity = fused_it @ calib["prototype"].float()
+                    approach = proprio[:, 6] > 0.5  # gripper still open
+                    deferred = approach & (affinity < ccfg.defer_threshold)
+                    winner = torch.where(deferred, zero, winner)
+                    max_score = torch.where(deferred, scores[:, 0],
+                                            max_score)
+                    used_stage2 = used_stage2 & ~deferred
             else:
-                winner = torch.randint(0, K * N, (E,), generator=generator,
-                                       device=dev)
+                scores = torch.zeros((E, K * N), dtype=f32, device=dev)
+                max_score = torch.zeros(E, dtype=f32, device=dev)
+                used_stage2 = torch.zeros(E, dtype=torch.bool, device=dev)
+                if ccfg.selection == "first":
+                    winner = zero
+                elif random_winner is not None:
+                    winner = to_device(random_winner, dev, torch.long)
+                else:
+                    winner = torch.randint(0, K * N, (E,),
+                                           generator=generator, device=dev)
 
-        rows = torch.arange(E, device=dev)
-        exec_chunk = exec_chunks[rows, winner]
-        verifier_chunk = verif_chunks[rows, winner]
+            rows = torch.arange(E, device=dev)
+            exec_chunk = exec_chunks[rows, winner]
+            verifier_chunk = verif_chunks[rows, winner]
 
-        # 8. gripper majority vote within the winning language group; a
-        # deferred step executes the unvoted candidate 0
-        winner_group = winner // N
-        if ccfg.gripper_vote:
-            voted = vote_gripper(exec_chunks, exec_chunk, winner_group, N)
-            exec_chunk = torch.where(deferred[:, None, None], exec_chunk,
-                                     voted)
+            # 8. gripper majority vote within the winning language group; a
+            # deferred step executes the unvoted candidate 0
+            winner_group = winner // N
+            if ccfg.gripper_vote:
+                voted = vote_gripper(exec_chunks, exec_chunk, winner_group, N)
+                exec_chunk = torch.where(deferred[:, None, None], exec_chunk,
+                                         voted)
 
-        return VerifiedStepResult(
-            exec_chunk=exec_chunk, verifier_chunk=verifier_chunk,
-            winner_idx=winner.to(torch.int32),
-            winner_group=winner_group.to(torch.int32),
-            max_score=max_score, used_stage2=used_stage2,
-            deferred=deferred, scores=scores,
-            raw_gripper=grip[rows, winner, :, 0])
+            return VerifiedStepResult(
+                exec_chunk=exec_chunk, verifier_chunk=verifier_chunk,
+                winner_idx=winner.to(torch.int32),
+                winner_group=winner_group.to(torch.int32),
+                max_score=max_score, used_stage2=used_stage2,
+                deferred=deferred, scores=scores,
+                raw_gripper=grip[rows, winner, :, 0])
 
     return step
 
@@ -402,9 +421,8 @@ def make_propose_step_batched(pcfg: Pi0Config, vcfg: VerifierConfig,
              lang_masks, history, history_len,
              noise: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None) -> ProposeResult:
-        return propose(policy_params, _as(raw_image, dev),
-                       _as(proprio, dev, torch.float32), lang_tokens,
-                       lang_masks, history, history_len, noise, generator)
+        return propose(policy_params, raw_image, proprio, lang_tokens,
+                       lang_masks, history, history_len, noise, generator)[0]
 
     return step
 
@@ -423,24 +441,27 @@ def make_select_step_batched(ccfg: CoVerConfig, device=None):
     @torch.no_grad()
     def select(scores, exec_chunks, verif_chunks,
                raw_grippers) -> VerifiedStepResult:
-        scores = _as(scores, dev, torch.float32)
-        exec_chunks = _as(exec_chunks, dev, torch.float32)
-        verif_chunks = _as(verif_chunks, dev, torch.float32)
-        raw_grippers = _as(raw_grippers, dev, torch.float32)
-        winner, max_score, used_stage2 = select_from_scores(
-            scores, N, ccfg.rescore_threshold)
-        rows = torch.arange(scores.shape[0], device=dev)
-        exec_chunk = exec_chunks[rows, winner]
-        winner_group = winner // N
-        if ccfg.gripper_vote:
-            exec_chunk = vote_gripper(exec_chunks, exec_chunk, winner_group, N)
-        return VerifiedStepResult(
-            exec_chunk=exec_chunk, verifier_chunk=verif_chunks[rows, winner],
-            winner_idx=winner.to(torch.int32),
-            winner_group=winner_group.to(torch.int32),
-            max_score=max_score, used_stage2=used_stage2,
-            deferred=torch.zeros_like(used_stage2), scores=scores,
-            raw_gripper=raw_grippers[rows, winner, :, 0])
+        with span("step.select"):
+            scores = to_device(scores, dev, torch.float32)
+            exec_chunks = to_device(exec_chunks, dev, torch.float32)
+            verif_chunks = to_device(verif_chunks, dev, torch.float32)
+            raw_grippers = to_device(raw_grippers, dev, torch.float32)
+            winner, max_score, used_stage2 = select_from_scores(
+                scores, N, ccfg.rescore_threshold)
+            rows = torch.arange(scores.shape[0], device=dev)
+            exec_chunk = exec_chunks[rows, winner]
+            winner_group = winner // N
+            if ccfg.gripper_vote:
+                exec_chunk = vote_gripper(exec_chunks, exec_chunk,
+                                          winner_group, N)
+            return VerifiedStepResult(
+                exec_chunk=exec_chunk,
+                verifier_chunk=verif_chunks[rows, winner],
+                winner_idx=winner.to(torch.int32),
+                winner_group=winner_group.to(torch.int32),
+                max_score=max_score, used_stage2=used_stage2,
+                deferred=torch.zeros_like(used_stage2), scores=scores,
+                raw_gripper=raw_grippers[rows, winner, :, 0])
 
     return select
 

@@ -27,6 +27,7 @@ from cover_vla_tpu_torch.models.params import Init, ParamTree
 from cover_vla_tpu_torch.ops.masks import make_att_2d_masks, suffix_att_masks
 from cover_vla_tpu_torch.ops.sampling import (
     sample_flow_time, sample_noise, sinusoidal_time_embedding)
+from cover_vla_tpu_torch.utils.monitor import span, to_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -119,7 +120,7 @@ def embed_suffix(params: ParamTree, cfg: Pi0Config, state: torch.Tensor,
     state_emb = state_emb.reshape(state.shape[0], *([1] * (len(lead) - 1)),
                                   1, w).expand(*lead, 1, w)
 
-    t_flat = torch.as_tensor(timestep, device=state.device).expand(lead)
+    t_flat = to_device(timestep, state.device).expand(lead)
     time_emb = sinusoidal_time_embedding(
         t_flat.reshape(-1), w, cfg.time_min_period, cfg.time_max_period)
     # the time embedding is cast to the state embedding's dtype first
@@ -258,13 +259,16 @@ def sample_actions(params: ParamTree, cfg: Pi0Config, images, img_masks,
 
     Returns [B, N, chunk_size, max_action_dim] fp32. The noise is `noise`
     when given, else drawn from `generator`. The prefill runs once per
-    row; the Euler loop runs num_denoise_steps steps of dt = -1/steps.
+    row (the span `pi0.prefix`); the Euler loop runs num_denoise_steps
+    steps of dt = -1/steps (the span `pi0.denoise`).
     """
     b = state.shape[0]
     if noise is None:
         noise = sample_noise(
             (b, num_candidates, cfg.chunk_size, cfg.max_action_dim),
             noise_std, generator=generator, device=state.device)
-    prefix = compute_prefix_cache(params, cfg, images, img_masks,
-                                  lang_tokens, lang_masks)
-    return denoise_from_cache(params, cfg, state, prefix, noise)
+    with span("pi0.prefix"):
+        prefix = compute_prefix_cache(params, cfg, images, img_masks,
+                                      lang_tokens, lang_masks)
+    with span("pi0.denoise"):
+        return denoise_from_cache(params, cfg, state, prefix, noise)

@@ -28,6 +28,7 @@ from cover_vla_tpu_torch.models import siglip
 from cover_vla_tpu_torch.models.params import Init, ParamTree, iter_layers
 from cover_vla_tpu_torch.ops.attention import mha_attention
 from cover_vla_tpu_torch.ops.norms import layer_norm
+from cover_vla_tpu_torch.utils.monitor import to_device
 
 
 def _l2norm(x: torch.Tensor) -> torch.Tensor:
@@ -225,8 +226,8 @@ def text_aware_visual_extraction(members, cfg: VerifierConfig,
     sim = torch.einsum("bij,bkj->bik", text, patch)
     sim = sim[None] / temp[:, None, None, None]
     attn = torch.softmax(sim, dim=-1)
-    pos = torch.from_numpy(sincos_position_embedding(
-        patch.shape[1], patch.shape[2])).to(patch.device)
+    pos = to_device(sincos_position_embedding(patch.shape[1],
+                                              patch.shape[2]), patch.device)
     return torch.einsum("mbik,bkj->mbij", attn, patch + pos[None])
 
 

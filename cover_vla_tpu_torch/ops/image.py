@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from cover_vla_tpu_torch.utils.monitor import to_device
+
 
 @functools.lru_cache(maxsize=64)
 def _bicubic_matrix(src: int, dst: int) -> np.ndarray:
@@ -157,8 +159,8 @@ def resize_lanczos4_uint8_device(img: torch.Tensor, height: int,
     if (h, w) == (height, width):
         return img
     dev = img.device
-    xi, xc = (torch.from_numpy(t).to(dev) for t in _lanczos4_fixed_tables(w, width))
-    yi, yc = (torch.from_numpy(t).to(dev) for t in _lanczos4_fixed_tables(h, height))
+    xi, xc = (to_device(t, dev) for t in _lanczos4_fixed_tables(w, width))
+    yi, yc = (to_device(t, dev) for t in _lanczos4_fixed_tables(h, height))
     src = img.to(torch.int32)
     # horizontal taps: [B, h, W', 8, C] -> sum over taps (int64)
     tmp = (src[:, :, xi.long(), :] * xc[None, None, :, :, None]).sum(3)
@@ -215,12 +217,12 @@ def _separable_resize(img: torch.Tensor, h: int, w: int, matrix_fn,
     _, src_h, src_w, _ = img.shape
     x = img.float()
     if src_w != w:
-        mw = torch.from_numpy(matrix_fn(src_w, w)).to(img.device)   # [w, src_w]
+        mw = to_device(matrix_fn(src_w, w), img.device)   # [w, src_w]
         x = torch.einsum("ws,bhsc->bhwc", mw, x)
         if clip_range is not None:
             x = torch.round(x).clamp(*clip_range)
     if src_h != h:
-        mh = torch.from_numpy(matrix_fn(src_h, h)).to(img.device)   # [h, src_h]
+        mh = to_device(matrix_fn(src_h, h), img.device)   # [h, src_h]
         x = torch.einsum("hs,bswc->bhwc", mh, x)
         if clip_range is not None:
             x = torch.round(x).clamp(*clip_range)

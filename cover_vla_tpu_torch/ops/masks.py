@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from cover_vla_tpu_torch.utils.monitor import to_device
+
 
 def make_att_2d_masks(pad_masks: torch.Tensor,
                       att_masks: torch.Tensor) -> torch.Tensor:
@@ -35,4 +37,4 @@ def suffix_att_masks(batch: int, chunk_size: int,
     state starts a block (the prefix cannot attend to it); the action
     chunk is a second block, bidirectional within itself."""
     m = [1] + [1] + [0] * (chunk_size - 1)
-    return torch.tensor(m, dtype=torch.int32, device=device).expand(batch, -1)
+    return to_device(m, device, torch.int32).expand(batch, -1)

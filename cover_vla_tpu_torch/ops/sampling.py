@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cover_vla_tpu_torch.utils.monitor import to_device
+
 
 def sinusoidal_time_embedding(time: torch.Tensor, dimension: int,
                               min_period: float = 4e-3,
@@ -15,8 +17,8 @@ def sinusoidal_time_embedding(time: torch.Tensor, dimension: int,
     # static constants computed in float64, then fp32
     fraction = np.linspace(0.0, 1.0, dimension // 2, dtype=np.float64)
     period = min_period * (max_period / min_period) ** fraction
-    scaling = torch.from_numpy((1.0 / period * 2 * np.pi).astype(np.float32)
-                               ).to(time.device)
+    scaling = to_device((1.0 / period * 2 * np.pi).astype(np.float32),
+                        time.device)
     sin_input = scaling[None, :] * time.float()[:, None]
     return torch.cat([torch.sin(sin_input), torch.cos(sin_input)], dim=1)
 

@@ -1,4 +1,10 @@
-from cover_vla_tpu_torch.utils.tree import count_params, cast_tree, param_bytes
+def __getattr__(name):
+    # the tree helpers load on first use: `utils.tree` imports the models,
+    # and the ops that the models import use `utils.monitor`
+    if name in ("count_params", "cast_tree", "param_bytes"):
+        from cover_vla_tpu_torch.utils import tree
+        return getattr(tree, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def get_class_from_path(dotted: str):

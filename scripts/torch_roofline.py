@@ -30,6 +30,16 @@ The last line is one JSON object.
   events), the rate takes the work of the launches it holds and the row
   says how many it lost. Copies and memsets carry their bytes. Where
   neither is known the rate is null.
+- **By span.** Where the trace holds the program's spans (`utils.monitor
+  .span`, recorded under `monitor.recording()` or `profile_trace`: the
+  `user_annotation` events), each device event's time goes to the
+  innermost span open on the thread that launched it (its operator,
+  joined through `External id`, or its runtime call, joined through
+  `correlation`; "no_span" where neither lies in a span), by category;
+  each gap between device work goes to the innermost span open when it
+  began. `--record` records the spans and their transfer counters
+  (`h2d_copies`, `h2d_bytes`, `h2d_wait_s`, `d2h_*`; the profiled host
+  runs slower, so the waits read high).
 - **No device events** (a CPU run) raise: there is no CPU fallback.
 
     python scripts/torch_roofline.py [--trace-dir DIR] [--steps 4]
@@ -44,6 +54,7 @@ trace directory, then reads them.
 from __future__ import annotations
 
 import argparse
+import bisect
 import glob
 import gzip
 import json
@@ -204,6 +215,18 @@ def peaks(device: str):
     return by_cat, bench.PEAK_HBM_BYTES.get(device)
 
 
+def _operators(events) -> dict:
+    """{External id: the innermost CPU operator of the id (the latest to
+    start)}."""
+    ops = {}
+    for e in events:
+        x = e.get("args", {}).get("External id")
+        if e.get("cat") == "cpu_op" and x is not None:
+            if x not in ops or e["ts"] >= ops[x]["ts"]:
+                ops[x] = e
+    return ops
+
+
 def roofline(trace: dict, steps: int) -> dict:
     """The breakdown of one loaded trace over `steps` steps."""
     from cover_vla_tpu_torch.bench import DEVICE_EVENT_CATS, _merged_len
@@ -213,13 +236,7 @@ def roofline(trace: dict, steps: int) -> dict:
     if not dev_events:
         raise RuntimeError("the trace holds no device event (a CPU run, or "
                            "the profiler did not trace the card)")
-    ops = {}
-    for e in events:
-        x = e.get("args", {}).get("External id")
-        if e.get("cat") == "cpu_op" and x is not None:
-            # the innermost operator of an id: the latest to start
-            if x not in ops or e["ts"] >= ops[x]["ts"]:
-                ops[x] = e
+    ops = _operators(events)
     device = next((d.get("name") for d in trace.get("deviceProperties", [])
                    if d.get("id", 0) == 0), None)
     rows = {c: {"us": 0.0, "launches": 0, "flops": 0.0, "flops_us": 0.0,
@@ -301,6 +318,88 @@ def roofline(trace: dict, steps: int) -> dict:
             "categories": out}
 
 
+NO_SPAN = "no_span"
+
+
+class _Spans:
+    """Spans ((start, end, name)) for the innermost one open at a time."""
+
+    def __init__(self, spans):
+        # of two spans that start together, the outer first
+        self.spans = sorted(spans, key=lambda x: (x[0], -x[1]))
+        self.starts = [x[0] for x in self.spans]
+
+    def innermost(self, ts: float) -> str:
+        """The latest-starting span that covers `ts`, else "no_span"."""
+        for i in range(bisect.bisect_right(self.starts, ts) - 1, -1, -1):
+            if self.spans[i][1] >= ts:
+                return self.spans[i][2]
+        return NO_SPAN
+
+
+def by_span(trace: dict, steps: int) -> list:
+    """Device time a step by the innermost program span of its launch, by
+    category, and the device's idle time a step by the innermost span open
+    when each gap began: [{"span", "ms_per_step", "launches_per_step",
+    "idle_ms_per_step", "categories": {category: ms a step}}], most device
+    time first; [] when the trace holds no span."""
+    from cover_vla_tpu_torch.bench import DEVICE_EVENT_CATS
+    events = trace.get("traceEvents", [])
+    by_tid, launches = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        args = e.get("args", {})
+        if e.get("cat") == "user_annotation":
+            if e["name"].startswith("ProfilerStep#"):
+                continue            # the profiler's schedule, no span
+            ts = float(e["ts"])
+            by_tid.setdefault(e.get("tid"), []).append(
+                (ts, ts + float(e.get("dur", 0)), e["name"]))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in args:
+            launches[args["correlation"]] = e
+    if not by_tid:
+        return []
+    ops = _operators(events)
+    every = _Spans([x for spans in by_tid.values() for x in spans])
+    by_tid = {t: _Spans(spans) for t, spans in by_tid.items()}
+    rows = {}
+
+    def row(name):
+        return rows.setdefault(name, {"us": 0.0, "launches": 0,
+                                      "idle_us": 0.0, "categories": {}})
+
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in DEVICE_EVENT_CATS and e.get("dur")]
+    for e in dev:
+        args = e.get("args", {})
+        op = ops.get(args.get("External id"))
+        host = op or launches.get(args.get("correlation"))
+        spans = by_tid.get(host.get("tid")) if host is not None else None
+        name = (spans.innermost(float(host["ts"])) if spans is not None
+                else NO_SPAN)
+        r, dur, cat = row(name), float(e["dur"]), category(e, op)
+        r["us"] += dur
+        r["launches"] += 1
+        r["categories"][cat] = r["categories"].get(cat, 0.0) + dur
+    merged = []
+    for s, t in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in dev):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+    for (_, end), (nxt, _) in zip(merged, merged[1:]):
+        row(every.innermost(end))["idle_us"] += nxt - end
+    return [{"span": name, "ms_per_step": r["us"] / steps / 1e3,
+             "launches_per_step": r["launches"] / steps,
+             "idle_ms_per_step": r["idle_us"] / steps / 1e3,
+             "categories": {c: us / steps / 1e3 for c, us in sorted(
+                 r["categories"].items(), key=lambda kv: -kv[1])}}
+            for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["us"])]
+
+
 def print_table(res: dict, path: str) -> None:
     def f(x, fmt):
         return format(x, fmt) if x is not None else "null"
@@ -317,12 +416,25 @@ def print_table(res: dict, path: str) -> None:
               f"{100 * r['share_of_busy']:6.2f}% {r['launches_per_step']:9.1f} "
               f"{f(r['tflops'], '8.2f')} {f(r['flops_frac'], '8.4f')} "
               f"{f(r['tbs'], '7.3f')} {f(r['hbm_frac'], '7.4f')}")
+    if res.get("by_span"):
+        print(f"{'span':22s} {'ms/step':>9s} {'launches':>9s} "
+              f"{'idle ms':>8s} {'h2d':>5s} {'h2d MB':>8s}  categories (ms)")
+        counts = res.get("span_counts", {})
+        for r in res["by_span"]:
+            c = counts.get(r["span"], {})
+            print(f"{r['span']:22s} {r['ms_per_step']:9.3f} "
+                  f"{r['launches_per_step']:9.1f} "
+                  f"{r['idle_ms_per_step']:8.3f} "
+                  f"{c.get('h2d_copies', 0):5.1f} "
+                  f"{c.get('h2d_bytes', 0) / 1e6:8.3f}  " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in r["categories"].items()))
 
 
 def record(trace_dir: str, steps: int, config: str, device=None) -> None:
     """Profile `steps` full-width E16_N16_K1 verified steps under `config`
     (bench.py's weights and inputs) into `trace_dir`, with the operators'
-    shapes and the hand kernels' work."""
+    shapes, the hand kernels' work and the program's spans and their
+    transfer counters."""
     import shutil
     import numpy as np
     import torch
@@ -337,6 +449,7 @@ def record(trace_dir: str, steps: int, config: str, device=None) -> None:
     from cover_vla_tpu_torch.models import pi0, verifier
     from cover_vla_tpu_torch.ops import cuda_attention as ca
     from cover_vla_tpu_torch.ops.kernel_work import WORK
+    from cover_vla_tpu_torch.utils import monitor
     from torch.profiler import ProfilerActivity, profile, schedule
 
     dev = resolve_device(device)
@@ -369,13 +482,15 @@ def record(trace_dir: str, steps: int, config: str, device=None) -> None:
     path = os.path.join(trace_dir, "trace.json")
     # one profiled warm-up step first: the device tracer loses the first
     # kernels after it starts
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: p.export_chrome_trace(path),
-                 record_shapes=True, with_flops=True) as prof:
+    with monitor.recording(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(path),
+            record_shapes=True, with_flops=True) as prof:
         call(299)
         torch.cuda.synchronize(dev)
         prof.step()
+        monitor.drain()
         ca.work_log = []
         try:
             outs = [call(300 + i) for i in range(steps)]
@@ -385,6 +500,11 @@ def record(trace_dir: str, steps: int, config: str, device=None) -> None:
             ca.work_log = None
         prof.step()
     del outs
+    counts = {}
+    for r in monitor.drain():
+        c = counts.setdefault(r.name, {})
+        for k, v in r.counts.items():
+            c[k] = c.get(k, 0) + v
     work = {}
     for name, args in log:
         nbytes, flops = WORK[name](args)
@@ -394,6 +514,7 @@ def record(trace_dir: str, steps: int, config: str, device=None) -> None:
         w["bytes"] += nbytes
     trace = load_trace(path)
     trace["cvlaKernelWork"] = work
+    trace["cvlaSpanCounts"] = counts
     trace["cvlaRecord"] = {"cell": "E16_N16_K1", "config": config,
                            "steps": steps}
     with open(path, "w") as f:
@@ -419,7 +540,12 @@ def main(argv=None) -> dict:
     if args.record:
         record(args.trace_dir, args.steps, args.config, args.device)
     path = trace_path(args.trace_dir)
-    res = roofline(load_trace(path), args.steps)
+    trace = load_trace(path)
+    res = roofline(trace, args.steps)
+    res["by_span"] = by_span(trace, args.steps)
+    res["span_counts"] = {
+        name: {k: v / args.steps for k, v in c.items()}
+        for name, c in trace.get("cvlaSpanCounts", {}).items()}
     res["trace"] = path
     print_table(res, path)
     print(json.dumps(res))

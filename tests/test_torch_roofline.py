@@ -196,6 +196,83 @@ def test_the_union_is_the_bench_busy_time(rf, tmp_path):
         bench.trace_device_busy_s(str(tmp_path)), rel=1e-12)
 
 
+def _span(name, ts, dur, tid=1):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "pid": 1,
+            "tid": tid, "ts": ts, "dur": dur, "args": {}}
+
+
+def _spanned():
+    """`_events()` with the program's spans: the operators (at t0) inside
+    `pi0.prefix`, K1's launch (a runtime call on the host thread) inside
+    `pi0.denoise`, both inside `engine.step_async`, which ends at t0 + 55;
+    the copy launched from a second thread that holds no span then; in the
+    first step a span of that thread covers the gap from 110 us; the
+    profiler's device-side copies of the spans and its step annotation."""
+    ev = _events()
+    for s, t0 in enumerate((0.0, 1000.0)):
+        c = 900 + s
+        for e in ev:
+            if e["ts"] == t0 + 40 or e["ts"] == t0 + 60:
+                e["args"]["correlation"] = c if e["ts"] == t0 + 40 else c + 2
+        ev += [_span("engine.step_async", t0 - 1, 56.0),
+               _span("pi0.prefix", t0, 3.0),
+               _span("pi0.denoise", t0 + 3.5, 2.5),
+               {"ph": "X", "cat": "cuda_runtime", "name": "cuLaunchKernelEx",
+                "pid": 1, "tid": 1, "ts": t0 + 4, "dur": 1.0,
+                "args": {"correlation": c}},
+               {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
+                "pid": 1, "tid": 2, "ts": t0 + 40, "dur": 1.0,
+                "args": {"correlation": c + 2}},
+               {"ph": "X", "cat": "gpu_user_annotation",
+                "name": "pi0.prefix", "pid": 0, "tid": 7, "ts": t0 + 10,
+                "dur": 20.0, "args": {}}]
+    ev[1:1] = [_span("bench.env_step", 105.0, 45.0, tid=2),
+               _span("ProfilerStep#1", -5.0, 2000.0)]
+    return ev
+
+
+def test_by_span_attributes_device_and_idle_time(rf, tmp_path):
+    rows = {r["span"]: r for r in rf.by_span(_trace(_spanned()), steps=2)}
+    assert list(rows)[:3] == ["pi0.prefix", "pi0.denoise", "no_span"]
+    p, d, n = rows["pi0.prefix"], rows["pi0.denoise"], rows["no_span"]
+    assert p["ms_per_step"] == pytest.approx(0.04, abs=1e-12)
+    assert p["launches_per_step"] == 4
+    assert p["categories"] == pytest.approx(
+        {"gemm_bf16": 0.02, "elementwise": 0.01, "gemm_fp32": 0.01},
+        abs=1e-12)
+    # K1, outside any operator, through its runtime call's correlation
+    assert d["categories"] == pytest.approx({"K1": 0.01}, abs=1e-12)
+    # the copy's launch lies in no span of its own thread
+    assert n["categories"] == pytest.approx({"copy_memset": 0.004},
+                                            abs=1e-12)
+    # gaps from 30 and 50 us in the root span, from 64 us in none, the
+    # 900 us gap from 110 us under the second thread's span
+    assert rows["engine.step_async"]["idle_ms_per_step"] == pytest.approx(
+        0.02, abs=1e-12)
+    assert n["idle_ms_per_step"] == pytest.approx(0.036, abs=1e-12)
+    assert rows["bench.env_step"]["idle_ms_per_step"] == pytest.approx(
+        0.45, abs=1e-12)
+    assert rows["bench.env_step"]["launches_per_step"] == 0
+    assert p["idle_ms_per_step"] == d["idle_ms_per_step"] == 0
+    assert sum(r["ms_per_step"] for r in rows.values()) == pytest.approx(
+        0.054, abs=1e-12)
+    assert rf.by_span(_trace(_events()), steps=2) == []
+
+    t = _trace(_spanned())
+    t["cvlaSpanCounts"] = {"pi0.denoise": {"h2d_copies": 22,
+                                            "h2d_bytes": 400}}
+    (tmp_path / "trace.json").write_text(json.dumps(t))
+    res = rf.main(["--trace-dir", str(tmp_path), "--steps", "2"])
+    assert res["by_span"] == rf.by_span(t, steps=2)
+    assert res["span_counts"] == {"pi0.denoise": {"h2d_copies": 11,
+                                                   "h2d_bytes": 200}}
+
+
+def test_spans_leave_the_categories_unchanged(rf):
+    plain = rf.roofline(_trace(_events()), steps=2)
+    assert rf.roofline(_trace(_spanned()), steps=2) == plain
+
+
 def test_kernel_work_reckoning():
     """The bytes and FLOPs `chip_smoke.py` bounds the kernels with: every
     input once plus the bf16 result, and the attended pairs."""
