@@ -34,11 +34,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
      mode against the fused step;
   6. serving at full width: the int8 route card vs CPU (weight and
      activation grids bit-equal, torch._int_mm's int32 accumulators equal
-     to the exact CPU product, also at 1, 8, 16 and 17 rows) and timed
-     against the bf16 GEMM in both weight layouts; the int8_full verified
-     step (w8a8 policy and verifier backbone) in both cells under the
-     fast and all-kernel configs, in turns with bf16 fast: launch counts,
-     every candidate and score within the JAX package's int8 bounds, step
+     to the exact CPU product, also at 1, 8, 16 and 17 rows), the
+     activation-quant and rescale kernels bit-equal to their plain twins
+     at the benchmark cells' shapes and timed beside their bound and the
+     twins, and the w8a8 product timed against the bf16 GEMM in both
+     weight layouts; the int8_full verified step (w8a8 policy and
+     verifier backbone) in both cells under the fast and all-kernel
+     configs, in turns with bf16 fast: launch counts (the quant kernels'
+     too), every output bit-equal to the step's with the eager quant
+     chain, every candidate and score within the JAX package's int8 bounds, step
      times, a profile; pi0-FAST (PaliGemma 2B + so400m) greedy
      generation of 64 tokens at B = 1 and 4, deterministic and invariant
      to padded prompt ids, prefill and per-token times; four served policies (the
@@ -1139,11 +1143,100 @@ INT8_SCORE_REL = 0.25
 INT8_TOPS = 1979e12           # H100 SXM dense int8 tensor cores
 
 
+# the cells' shapes of the w8a8 route's glue: (tag, rows, K or N, bias):
+# the 5x8 prefill (256 prompts x 328 tokens), the N=80 Euler steps (64 x 80
+# candidates x 5 tokens), so400m over 64 images (x 256 patches) and ViT-L
+# over 64 frames (x 576 patches), the towers' with their bias
+QUANT_SHAPES = (("prefill", 83968, 2048, False), ("prefill", 83968, 16384, False),
+                ("euler", 25600, 1024, False), ("euler", 25600, 4096, False),
+                ("so400m", 16384, 1152, True), ("so400m", 16384, 4304, True),
+                ("vit_l", 36864, 1024, True), ("vit_l", 36864, 4096, True))
+
+
+def quant_kernels(torch, card, dev):
+    """csrc/quant.cu's act_quant and rescale at the cells' shapes: bit-equal
+    to their plain twins run on the same card tensors (bf16 in and out, the
+    rescale with the towers' bias), one launch a call, timed in a stream and
+    in a graph beside their bound and the twin's time in a stream."""
+    from cover_vla_tpu_torch.ops import quant
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for tag, m, k, with_bias in QUANT_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf) * 3
+        quant.reset_launch_counts()
+        xq, xs = quant.quant_act(x)
+        if quant.launch_counts != {"act_quant": 1, "rescale": 0}:
+            raise AssertionError(f"act_quant {m}x{k}: {quant.launch_counts}")
+        pq, ps = quant.quant_act_plain(x)
+        if not (torch.equal(xq, pq) and torch.equal(xs, ps)):
+            raise AssertionError(f"act_quant {m}x{k}: kernel != plain twin")
+        del pq, ps
+        # accumulators past 2^24, where the int -> float conversion rounds
+        acc = torch.randint(-2 ** 26, 2 ** 26, (m, k), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ws = torch.rand((1, k), generator=gen, device=dev) * 1e-3
+        bias = (torch.randn(k, generator=gen, device=dev).to(bf)
+                if with_bias else None)
+        got = quant.rescale(acc, xs, ws, bf, bias)
+        if quant.launch_counts["rescale"] != 1:
+            raise AssertionError(f"rescale {m}x{k}: {quant.launch_counts}")
+        if not torch.equal(got, quant.rescale_plain(acc, xs, ws, bf, bias)):
+            raise AssertionError(f"rescale {m}x{k}: kernel != plain twin")
+        del got
+        q_bytes = m * k * (2 + 1) + m * 4
+        r_bytes = m * k * (4 + 2) + m * 4 + k * 4 + (k * 2 if with_bias else 0)
+        launches = 20 if m * k < 1e8 else 5
+        t = dict(
+            act_quant=time_ms(torch, quant.quant_act, [(x,)], launches),
+            act_quant_graph=graph_ms(torch, quant.quant_act, [(x,)], launches),
+            act_quant_plain=time_ms(torch, quant.quant_act_plain, [(x,)], 3),
+            act_quant_bound=q_bytes / HBM_BYTES_PER_S * 1e3,
+            rescale=time_ms(torch, quant.rescale, [(acc, xs, ws, bf, bias)],
+                            launches),
+            rescale_graph=graph_ms(torch, quant.rescale,
+                                   [(acc, xs, ws, bf, bias)], launches),
+            rescale_plain=time_ms(torch, quant.rescale_plain,
+                                  [(acc, xs, ws, bf, bias)], 3),
+            rescale_bound=r_bytes / HBM_BYTES_PER_S * 1e3)
+        out[f"{tag} {m}x{k}"] = t
+        log(f"quant kernels {tag} {m}x{k}{' +bias' if with_bias else ''}: "
+            f"bit-equal to the twins; act_quant {t['act_quant']:.4f} ms "
+            f"stream / {t['act_quant_graph']:.4f} ms graph, bound "
+            f"{t['act_quant_bound']:.4f} ms "
+            f"({100 * t['act_quant_bound'] / t['act_quant_graph']:.1f}%), "
+            f"eager twin {t['act_quant_plain']:.4f} ms; rescale "
+            f"{t['rescale']:.4f} / {t['rescale_graph']:.4f} ms, bound "
+            f"{t['rescale_bound']:.4f} ms "
+            f"({100 * t['rescale_bound'] / t['rescale_graph']:.1f}%), eager "
+            f"twin {t['rescale_plain']:.4f} ms | {card}")
+        del x, xq, xs, acc, ws, bias
+        torch.cuda.empty_cache()
+    # the host's side: microseconds to enqueue one call at a decode shape
+    x = torch.randn((200, 2048), generator=gen, device=dev).to(bf)
+    xq, xs = quant.quant_act(x)
+    acc = torch.randint(-2 ** 20, 2 ** 20, (200, 2048), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ws = torch.rand((1, 2048), generator=gen, device=dev)
+    host = {name: host_enqueue_us(torch, fn, args) for name, fn, args in (
+        ("act_quant", quant.quant_act, (x,)),
+        ("act_quant_plain", quant.quant_act_plain, (x,)),
+        ("rescale", quant.rescale, (acc, xs, ws)),
+        ("rescale_plain", quant.rescale_plain, (acc, xs, ws)))}
+    out["host_us_200x2048"] = host
+    log(f"quant kernels, host us to enqueue a 200x2048 call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    log(json.dumps({"quant_kernels": out}))
+    return out
+
+
 def int8_exactness(torch, card, dev, pp, vp):
     """The int8 route card vs CPU: grids bit-equal, `_int_mm`'s int32
     accumulators equal to the exact CPU product at the main path's shapes
-    and at the padded row counts; `_int_mm` timed against the bf16 GEMM of
-    the same shape, for both weight layouts."""
+    and at the padded row counts; the quant and rescale kernels against
+    their plain twins at the cells' shapes (`quant_kernels`); `_int_mm`
+    timed against the bf16 GEMM of the same shape, for both weight
+    layouts."""
     from cover_vla_tpu_torch.ops import quant
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1162,8 +1255,9 @@ def int8_exactness(torch, card, dev, pp, vp):
     if not (torch.equal(xq.cpu(), xq_cpu) and torch.equal(xs.cpu(), xs_cpu)):
         raise AssertionError("activation quant: card != CPU")
     log("int8 grids: paligemma q[0], ViT-L fc1[0] and a 5248x2048 bf16 "
-        "activation quantized on the card and on the CPU: int8 tensors and "
-        "fp32 scales bit-equal")
+        "activation quantized on the card (the act_quant kernel) and on the "
+        "CPU: int8 tensors and fp32 scales bit-equal")
+    kernels = quant_kernels(torch, card, dev)
 
     weights = {"pg_q": quant.quantize_weight(pg["q"][0]),
                "ex_gate": quant.quantize_weight(ex["gate"][0]),
@@ -1221,7 +1315,7 @@ def int8_exactness(torch, card, dev, pp, vp):
             f"{mm:.4f} ms, whole w8a8 product (activation quant + _int_mm + "
             f"rescale) {w8a8:.4f} ms; bounds int8 {bound8:.4f} / bf16 "
             f"{bound16:.4f} ms | {card}")
-    return out
+    return out, kernels
 
 
 def normalized_actions(torch, cands, stats):
@@ -1243,6 +1337,8 @@ def int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
     from cover_vla_tpu_torch.data.stats import DatasetStatistics
     from cover_vla_tpu_torch.engine.verified_step import (
         make_propose_step_batched, make_verified_step_batched)
+    from unittest import mock
+
     from cover_vla_tpu_torch.ops import cuda_attention as ca
     from cover_vla_tpu_torch.ops import quant
 
@@ -1258,9 +1354,14 @@ def int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
     expected = {"all_kernel": launches_per_step(pcfg, vcfg)}
     expected["fast"] = {**expected["all_kernel"], "prefix_gqa": 0}
     # w8a8 products a step: 7 a Gemma layer pass, 6 a ViT layer
-    int_mm_per_step = (7 * (pcfg.paligemma.depth
-                            + pcfg.expert.depth * pcfg.num_denoise_steps)
-                       + 6 * (pcfg.vision.depth + vcfg.vision.depth))
+    gemma_passes = (pcfg.paligemma.depth
+                    + pcfg.expert.depth * pcfg.num_denoise_steps)
+    vit_blocks = pcfg.vision.depth + vcfg.vision.depth
+    int_mm_per_step = 7 * gemma_passes + 6 * vit_blocks
+    # one act_quant a quantized input (4 a Gemma layer pass or ViT block),
+    # one rescale a product
+    quant_per_step = {"act_quant": 4 * (gemma_passes + vit_blocks),
+                      "rescale": int_mm_per_step}
     first_cell = next(iter(cells))
     profiles = {}
     for cell, (e, ccfg) in cells.items():
@@ -1275,18 +1376,44 @@ def int8_step_phase(torch, card, dev, pcfg, vcfg, pp, vp, cells):
         for name, (fn, p, v) in runs.items():
             ca.reset_launch_counts()
             quant.reset_int_mm_calls()
+            quant.reset_launch_counts()
             res[name] = fn(p, v, *inputs, noise=noise)
             torch.cuda.synchronize()
             counts, n_int = dict(ca.launch_counts), quant.int_mm_calls["int_mm"]
+            n_quant = dict(quant.launch_counts)
             want = expected[name.split()[-1]]
-            want_int = int_mm_per_step if name.startswith("int8") else 0
-            if counts != want or n_int != want_int:
+            int8 = name.startswith("int8")
+            want_int = int_mm_per_step if int8 else 0
+            want_quant = {q: n if int8 else 0
+                          for q, n in quant_per_step.items()}
+            if counts != want or n_int != want_int or n_quant != want_quant:
                 raise AssertionError(f"{cell} {name}: launches {counts}, "
-                                     f"_int_mm {n_int}; expected {want}, "
-                                     f"{want_int}")
+                                     f"_int_mm {n_int}, {n_quant}; expected "
+                                     f"{want}, {want_int}, {want_quant}")
             check_result(torch, res[name], e, ccfg.n_rephrases,
                          ccfg.n_samples, pcfg.chunk_size)
-            log(f"{cell} {name}: launches {counts}, _int_mm calls {n_int}")
+            log(f"{cell} {name}: launches {counts}, _int_mm calls {n_int}, "
+                f"quant kernels {n_quant}")
+        # the int8_full step again, and with the eager chain (the plain
+        # twins on the card) in place of the quant kernels: bit-equal
+        # wherever the step itself repeats bit for bit
+        fn, p, v = runs["int8_full fast"]
+        again = fn(p, v, *inputs, noise=noise)
+        with mock.patch.object(quant, "quant_act", quant.quant_act_plain), \
+                mock.patch.object(quant, "rescale", quant.rescale_plain):
+            eager = fn(p, v, *inputs, noise=noise)
+        kernel = res["int8_full fast"]
+        repeats = all(torch.equal(getattr(again, f), getattr(kernel, f))
+                      for f in kernel._fields)
+        differ = [f for f in kernel._fields
+                  if not torch.equal(getattr(eager, f), getattr(kernel, f))]
+        if repeats and differ:
+            raise AssertionError(f"{cell} int8_full fast: the quant kernels "
+                                 f"and the eager chain differ in {differ}")
+        log(f"{cell} int8_full fast: the step repeats bit for bit: {repeats}; "
+            f"with the eager quant chain instead of the kernels, outputs "
+            f"that differ: {differ or 'none'}")
+        del again, eager
         raw, proprio, lt, lm, vt, hist, hlen = inputs
         propose = make_propose_step_batched(*attn["fast"], ccfg, stats,
                                             device=dev)

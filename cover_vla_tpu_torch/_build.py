@@ -39,6 +39,10 @@ _SIGNATURES = {
     "cvla_mha_dense": [_P] * 4 + [_I] * 5 + [_F, _P],
     # q, k, v, mask, out, B, Sq, Skv, Hkv, G, D, scale, out_f32, stream
     "cvla_prefix_gqa": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+    # x, q, scale, rows, K, in_f32, stream
+    "cvla_act_quant": [_P] * 3 + [_I] * 3 + [_P],
+    # acc, xs, ws, bias (or null), out, rows, N, out_f32, stream
+    "cvla_rescale": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

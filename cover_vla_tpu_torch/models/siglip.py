@@ -91,7 +91,7 @@ def _vmm(x: torch.Tensor, sub, xq=None, xs=None) -> torch.Tensor:
     if xq is None:
         xq, xs = quant.quant_act(x)
     return quant.int8_matmul(xq, xs, sub["kernel"], s,
-                             out_dtype=sub["bias"].dtype) + sub["bias"]
+                             out_dtype=sub["bias"].dtype, bias=sub["bias"])
 
 
 def _block(layer: dict, h: torch.Tensor, num_heads: int, eps: float,

@@ -21,6 +21,12 @@ the CPU (every partial sum is an integer below 2^53). An int8 weight is
 kept as the transpose of an [..., N, K] contiguous tensor: the same shape
 and values as the reference's [..., K, N], and one layer's slice is the
 column-major B operand that cuBLASLt's int8 path takes without a copy.
+
+On CUDA tensors the glue around the product is two hand-written one-pass
+kernels (`csrc/quant.cu`): `act_quant` (the activation quant) and
+`rescale` (the accumulator's rescale, with the ViT's bias). They are
+bit-equal to their plain twins, `quant_act_plain` and `rescale_plain`,
+which CPU tensors take; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cover_vla_tpu_torch import _build
 from cover_vla_tpu_torch.models.params import ParamTree
+from cover_vla_tpu_torch.ops.cuda_attention import (
+    _refuse_autograd, _route, _run)
 
 # weight names carrying the Gemma stack's matmuls
 GEMMA_MATMUL_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
@@ -45,9 +54,18 @@ _INT_MM_MIN_ROWS = 17
 # int8 products run through torch._int_mm since the last reset
 int_mm_calls = {"int_mm": 0}
 
+# launches of each csrc/quant.cu kernel since the last reset (CPU twin
+# calls not counted)
+launch_counts = {"act_quant": 0, "rescale": 0}
+
 
 def reset_int_mm_calls() -> None:
     int_mm_calls["int_mm"] = 0
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def _absmax_scale(x32: torch.Tensor, dim: int) -> torch.Tensor:
@@ -71,11 +89,59 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.transpose(-1, -2).contiguous().transpose(-1, -2), scale
 
 
-def quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[..., K] activations -> (int8, fp32 per-token scale [..., 1])."""
+def quant_act_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the `act_quant` kernel: [..., K] activations -> (int8,
+    fp32 per-token scale [..., 1])."""
     x32 = x.float()
     scale = _absmax_scale(x32, -1)
     return _to_int8(x32, scale), scale
+
+
+# the kernels' float dtypes and the flag their C entry points take
+_KERNEL_FLOATS = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device as the C entry points take it:
+    the raw handle, without the `torch.cuda.Stream` object that
+    `torch.cuda.current_stream(...)` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _act_quant_refusal(x: torch.Tensor):
+    """Why the act_quant kernel cannot take x, or None. The kernel keeps a
+    row in registers: at most 256 threads x 16 packs of 16 bytes, or of one
+    element where the rows are not 16-byte aligned."""
+    if x.dtype not in _KERNEL_FLOATS:
+        return f"x must be bf16 or fp32, got {x.dtype}"
+    if not x.is_contiguous():
+        return "x must be contiguous"
+    k, vec = x.shape[-1], 16 // x.element_size()
+    most = 4096 * (vec if k % vec == 0 and x.data_ptr() % 16 == 0 else 1)
+    if not 0 < k <= most:
+        return f"rows of {k} {x.dtype} elements (at most {most} here)"
+    return None
+
+
+def quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., K] activations -> (int8, fp32 per-token scale [..., 1]): the
+    `act_quant` kernel for a CUDA tensor (bf16 or fp32, contiguous), the
+    plain twin for a CPU one."""
+    _refuse_autograd("act_quant", x)
+    if not _route("act_quant", x.device):
+        return quant_act_plain(x)
+    why = _act_quant_refusal(x)
+    if why:
+        raise ValueError(f"act_quant: {why}")
+    q = torch.empty_like(x, dtype=torch.int8)
+    scale = x.new_empty((*x.shape[:-1], 1), dtype=torch.float32)
+    k = x.shape[-1]
+    rows = x.numel() // k
+    if rows:
+        _run(_build.load().lib.cvla_act_quant, x.data_ptr(), q.data_ptr(),
+             scale.data_ptr(), rows, k, _KERNEL_FLOATS[x.dtype], _stream(x))
+        launch_counts["act_quant"] += 1
+    return q, scale
 
 
 def int8_accumulate(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -92,15 +158,74 @@ def int8_accumulate(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), wq)[:m].reshape(*lead, wq.shape[-1])
 
 
+def rescale_plain(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                  out_dtype=torch.bfloat16, bias=None) -> torch.Tensor:
+    """Plain twin of the `rescale` kernel: int32 [..., N] accumulator ->
+    out_dtype [..., N], plus `bias` [N] in out_dtype when given."""
+    out = ((acc.float() * xs) * ws.reshape(-1)).to(out_dtype)
+    return out if bias is None else out + bias
+
+
+def _rescale_refusal(acc, xs, ws, out_dtype, bias):
+    """Why the rescale kernel cannot take these, or None."""
+    n = acc.shape[-1]
+    rows = acc.numel() // n if n else 0
+    if acc.dtype != torch.int32:
+        return f"the accumulator must be int32, got {acc.dtype}"
+    if out_dtype not in _KERNEL_FLOATS:
+        return f"out_dtype must be bf16 or fp32, got {out_dtype}"
+    if not xs.dtype == ws.dtype == torch.float32:
+        return f"scales must be fp32, got {xs.dtype} and {ws.dtype}"
+    if xs.numel() != rows or ws.numel() != n:
+        return (f"scales {tuple(xs.shape)} and {tuple(ws.shape)} for an "
+                f"accumulator {tuple(acc.shape)}")
+    if not (acc.is_contiguous() and xs.is_contiguous()
+            and ws.is_contiguous()):
+        return "the accumulator and the scales must be contiguous"
+    if bias is not None and not (bias.dtype == out_dtype
+                                 and bias.numel() == n
+                                 and bias.is_contiguous()):
+        return (f"bias must be a contiguous [{n}] {out_dtype}, got "
+                f"{tuple(bias.shape)} {bias.dtype}")
+    if rows * n >= 2 ** 31:
+        return f"{rows} x {n} outputs (the kernel takes under 2^31)"
+    return None
+
+
+def rescale(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+            out_dtype=torch.bfloat16, bias=None) -> torch.Tensor:
+    """int32 [..., N] accumulator * xs [..., 1] * ws [N] (+ bias [N]) ->
+    out_dtype [..., N]: the `rescale` kernel for a CUDA accumulator (bf16 or
+    fp32 out, contiguous inputs), the plain twin for a CPU one."""
+    _refuse_autograd("rescale", xs, ws, *(() if bias is None else (bias,)))
+    if not _route("rescale", acc.device):
+        return rescale_plain(acc, xs, ws, out_dtype, bias)
+    why = _rescale_refusal(acc, xs, ws, out_dtype, bias)
+    if why:
+        raise ValueError(f"rescale: {why}")
+    out = torch.empty_like(acc, dtype=out_dtype)
+    n = acc.shape[-1]
+    rows = acc.numel() // n if n else 0
+    if rows:
+        _run(_build.load().lib.cvla_rescale, acc.data_ptr(), xs.data_ptr(),
+             ws.data_ptr(), None if bias is None else bias.data_ptr(),
+             out.data_ptr(), rows, n, _KERNEL_FLOATS[out_dtype],
+             _stream(acc))
+        launch_counts["rescale"] += 1
+    return out
+
+
 def int8_matmul(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
-                ws: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """(int8 [..., K] @ int8 [K, N]) * scales -> out_dtype [..., N].
+                ws: torch.Tensor, out_dtype=torch.bfloat16,
+                bias=None) -> torch.Tensor:
+    """(int8 [..., K] @ int8 [K, N]) * scales (+ bias) -> out_dtype [..., N].
 
     The accumulation is exact; all quantization error lives in the
     rounding of x and w. The rescale keeps the reference's order,
-    (acc * xs) * ws, so the result is bit-equal to it."""
-    acc = int8_accumulate(xq, wq)
-    return ((acc.float() * xs) * ws.reshape(-1)).to(out_dtype)
+    (acc * xs) * ws, so the result is bit-equal to it; a bias (in
+    out_dtype) is added after the cast, as `int8_matmul(...) + bias`
+    would."""
+    return rescale(int8_accumulate(xq, wq), xs, ws, out_dtype, bias)
 
 
 def _children(tree) -> dict:

@@ -303,6 +303,98 @@ def test_int8_batched_verified_step_matches_jax(trees):
 
 
 # ---------------------------------------------------------------------------
+# the CPU route of the csrc/quant.cu wrappers: the plain twins, no launch
+# ---------------------------------------------------------------------------
+
+# the main path's contraction widths (so400m's 1152 and 4304 among them) and
+# row counts on both sides of _int_mm's 17-row minimum
+MAIN_K = (1024, 1152, 4304, 16384)
+MAIN_M = (1, 16, 17, 300)
+
+
+@pytest.mark.parametrize("k", MAIN_K)
+@pytest.mark.parametrize("m", MAIN_M)
+def test_cpu_route_takes_plain_twins_and_folds_the_bias(m, k):
+    """CPU tensors take the plain twins and launch nothing; the grid is the
+    JAX package's at the main path's widths; a bias passed to int8_matmul
+    equals `int8_matmul(...) + bias` bit for bit, in bf16 and fp32."""
+    rng = np.random.default_rng(m * 7 + k)
+    n = 40
+    jx, x = _bf16_pair(rng.standard_normal((m, k)).astype(np.float32) * 3)
+    w = _t((rng.standard_normal((k, n)) * 0.02).astype(np.float32))
+    quant.reset_launch_counts()
+    xq, xs = quant.quant_act(x)
+    pq, ps = quant.quant_act_plain(x)
+    assert torch.equal(xq, pq) and torch.equal(xs, ps)
+    jq, js = jquant.quant_act(jx)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(js))
+    wq, ws = quant.quantize_weight(w)
+    acc = quant.int8_accumulate(xq, wq)
+    for dt in (torch.bfloat16, torch.float32):
+        b = _t(rng.standard_normal(n).astype(np.float32)).to(dt)
+        out = quant.int8_matmul(xq, xs, wq, ws, out_dtype=dt)
+        assert out.dtype == dt
+        assert torch.equal(out, quant.rescale_plain(acc, xs, ws, dt))
+        with_bias = quant.int8_matmul(xq, xs, wq, ws, out_dtype=dt, bias=b)
+        assert with_bias.dtype == dt and torch.equal(with_bias, out + b)
+    assert quant.launch_counts == {"act_quant": 0, "rescale": 0}
+
+
+def test_int8_step_sites_feed_what_the_kernels_take(trees, monkeypatch):
+    """Every quantized site of the int8_full verified step hands the
+    wrappers what the CUDA kernels take (contiguous bf16/fp32 activations,
+    fp32 scales, a bias in the output's dtype): one quant a quantized input
+    (4 a Gemma layer pass or ViT block) and one rescale a product."""
+    _, _, tpp, tvp = trees
+    pcfg, vcfg = configs.tiny_pi0_config(), configs.tiny_verifier_config()
+    calls = {"act_quant": 0, "rescale": 0}
+    orig_quant, orig_mm = quant.quant_act, quant.int8_matmul
+
+    def spy_quant(x):
+        assert x.dtype in (torch.bfloat16, torch.float32) and \
+            x.is_contiguous(), (x.dtype, x.stride())
+        calls["act_quant"] += 1
+        return orig_quant(x)
+
+    def spy_mm(xq, xs, wq, ws, out_dtype=torch.bfloat16, bias=None):
+        assert xq.is_contiguous() and xs.is_contiguous() and \
+            ws.is_contiguous() and xs.dtype == ws.dtype == torch.float32
+        assert out_dtype in (torch.bfloat16, torch.float32)
+        assert bias is None or (bias.dtype == out_dtype
+                                and bias.is_contiguous()
+                                and bias.numel() == wq.shape[-1])
+        calls["rescale"] += 1
+        return orig_mm(xq, xs, wq, ws, out_dtype, bias)
+    monkeypatch.setattr(quant, "quant_act", spy_quant)
+    monkeypatch.setattr(quant, "int8_matmul", spy_mm)
+    e, k, n = 2, 2, 2
+    rng = np.random.default_rng(6)
+    t = pcfg.tokenizer_max_length
+    episodes = (rng.integers(0, 256, (e, 256, 256, 3), dtype=np.uint8),
+                rng.uniform(-0.1, 0.1, (e, 7)).astype(np.float32),
+                rng.integers(0, pcfg.paligemma.vocab_size, (e, k, t)
+                             ).astype(np.int32),
+                np.ones((e, k, t), bool),
+                rng.integers(0, vcfg.text.vocab_size,
+                             (e, vcfg.text.context_length)).astype(np.int32),
+                rng.uniform(-0.5, 0.5, (e, 6, 7)).astype(np.float32),
+                np.array([6, 3], np.int32))
+    noise = rng.standard_normal((e, k, n, pcfg.chunk_size,
+                                 pcfg.max_action_dim)).astype(np.float32)
+    make_verified_step_batched(
+        pcfg, vcfg, configs.CoVerConfig(n_samples=n, n_rephrases=k),
+        DatasetStatistics.from_json(), device="cpu")(
+        quant.quantize_pi0_policy(tpp), quant.quantize_verifier(tvp),
+        *episodes, noise=noise)
+    gemma_passes = pcfg.paligemma.depth \
+        + pcfg.expert.depth * pcfg.num_denoise_steps
+    vit_blocks = pcfg.vision.depth + vcfg.vision.depth
+    assert calls == {"act_quant": 4 * (gemma_passes + vit_blocks),
+                     "rescale": 7 * gemma_passes + 6 * vit_blocks}
+
+
+# ---------------------------------------------------------------------------
 # the port's own int8-vs-bf16 bounds (the JAX package's tests/test_quant.py)
 # ---------------------------------------------------------------------------
 
@@ -400,3 +492,70 @@ def test_int8_accumulate_on_card_equals_cpu(cuda_device, m):
     got = quant.int8_accumulate(xq.to(cuda_device), wq.to(cuda_device))
     assert quant.int_mm_calls["int_mm"] == 1
     assert torch.equal(got.cpu(), quant.int8_accumulate(xq, wq))
+
+
+# (K, N) of the main path's products: PaliGemma's, the expert's, so400m's
+# and ViT-L's, and an odd pair that takes the kernels' one-element path
+CARD_KN = ((2048, 16384), (16384, 2048), (1024, 4096), (4096, 1024),
+           (1152, 4304), (4304, 1152), (1001, 37))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", CARD_KN)
+@pytest.mark.parametrize("m", MAIN_M)
+def test_quant_kernels_on_card_equal_plain_twins(cuda_device, m, kn):
+    """csrc/quant.cu's act_quant and rescale against the plain twins run on
+    the same card tensors: bit-equal, bf16 and fp32 in and out, with and
+    without a bias; each call launches one kernel."""
+    k, n = kn
+    gen = torch.Generator(device=cuda_device).manual_seed(m * 7 + k)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * 0.02
+    wq, ws = quant.quantize_weight(w)
+    for dt in (torch.bfloat16, torch.float32):
+        x = (torch.randn((m, k), generator=gen, device=cuda_device) * 3).to(dt)
+        if m > 1:
+            x[1] = 0.0                      # an all-zero token: the floor
+        x[0, :3] = torch.tensor([0.5, -2.5, 1e-30])
+        quant.reset_launch_counts()
+        xq, xs = quant.quant_act(x)
+        assert quant.launch_counts == {"act_quant": 1, "rescale": 0}
+        pq, ps = quant.quant_act_plain(x)
+        assert torch.equal(xq, pq) and torch.equal(xs, ps)
+        # _int_mm takes widths that are multiples of 8: the odd pair's
+        # accumulator is the CPU's exact product
+        acc = (quant.int8_accumulate(xq, wq) if k % 8 == n % 8 == 0 else
+               quant.int8_accumulate(xq.cpu(), wq.cpu()).to(cuda_device))
+        for bias in (None, (torch.randn(n, generator=gen,
+                                        device=cuda_device)).to(dt)):
+            got = quant.rescale(acc, xs, ws, dt, bias)
+            assert torch.equal(got, quant.rescale_plain(acc, xs, ws, dt, bias))
+        assert quant.launch_counts == {"act_quant": 1, "rescale": 2}
+
+
+@pytest.mark.cuda
+def test_act_quant_bf16_exhaustive_on_card(cuda_device):
+    """Every (amax, x) pair a bf16 row can hold, each positive finite bf16
+    amax with each finite bf16 x of |x| <= amax, through the act_quant
+    kernel and its plain twin: bit-equal. (The kernel divides a bf16 row by
+    its scale with a reciprocal and one FMA residual step, not the IEEE
+    division; this is what shows the two agree.)"""
+    vals = torch.arange(65536, dtype=torch.int32, device=cuda_device).to(
+        torch.int16).view(torch.bfloat16)
+    finite = vals[torch.isfinite(vals)]            # 65,280, both zeros
+    amaxes = finite[finite > 0]                     # 32,639
+    width = 16384                                   # amax, then 16,383 x
+    chunks = -(-finite.numel() // (width - 1))
+    xcols = torch.cat([finite, finite.new_zeros(
+        chunks * (width - 1) - finite.numel())]).reshape(chunks, width - 1)
+    for a in amaxes.split(4096):
+        lim = a[:, None, None]
+        rows = torch.cat([lim.expand(-1, chunks, 1),
+                          torch.minimum(torch.maximum(xcols[None], -lim), lim)],
+                         dim=-1).reshape(-1, width)
+        q, s = quant.quant_act(rows)
+        pq, ps = quant.quant_act_plain(rows)
+        assert torch.equal(s, ps)
+        assert torch.equal(q, pq), (
+            f"{int((q != pq).sum())} codes differ, first at amax "
+            f"{rows[(q != pq).any(1)][0, 0].item()}")
+
