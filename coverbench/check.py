@@ -44,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from coverbench import reference
+from coverbench import backbones, reference
 
 # numbers of one answer; `action_rms` is the run's, over every answer
 NUMBERS = ("score_gap", "action_gap", "pick_mismatch", "decode_mismatch",
@@ -165,9 +165,10 @@ def judge(program: dict, ref: dict, e: int, n: int, cfg, stats, limits,
 
 def engine_matches(b, e, task, prompts, hist, hist_len, cfg) -> bool:
     pol, ver = cfg["policy"], cfg["verifier"]["text"]
+    vocab = backbones.load(cfg).prompt_vocab(pol)
     for i, p in enumerate(prompts):
-        t, m = reference.tokenize(p, pol["tokenizer_max_length"],
-                                  pol["paligemma"]["vocab_size"], True)
+        t, m = reference.tokenize(p, pol["tokenizer_max_length"], vocab,
+                                  True)
         if not (np.array_equal(b.lang_tokens[e, i], t)
                 and np.array_equal(b.lang_masks[e, i], m)):
             return False

@@ -30,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from coverbench import check, fake_env, trace as trace_mod, weights, yardstick
+from coverbench import (backbones, check, fake_env, trace as trace_mod,
+                        weights, yardstick)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "coverbench")
@@ -80,23 +81,9 @@ def load_cell(workload: str, root: str = ROOT) -> Cell:
 
 
 def port_configs(config: dict, traffic: dict):
-    """The program's config objects for a configuration file and a mix."""
-    from cover_vla_tpu_torch.configs import (
-        CoVerConfig, GemmaConfig, Pi0Config, SiglipTextConfig,
-        VerifierConfig, VitConfig, fast_pi0_config, fast_verifier_config,
-        replace)
-    p = dict(config["policy"])
-    pcfg = Pi0Config(paligemma=GemmaConfig(**p.pop("paligemma")),
-                     expert=GemmaConfig(**p.pop("expert")),
-                     vision=VitConfig(**p.pop("vision")), **p)
-    v = dict(config["verifier"])
-    members = v.pop("members")
-    vcfg = VerifierConfig(vision=VitConfig(**v.pop("vision")),
-                          text=SiglipTextConfig(**v.pop("text")), **v)
-    ccfg = CoVerConfig(n_samples=traffic["n_samples"],
-                       n_rephrases=traffic["n_rephrases"], **config["cover"])
-    return (replace(fast_pi0_config(pcfg), attention_impl="cuda"),
-            fast_verifier_config(vcfg), ccfg, members)
+    """The program's config objects for a configuration file and a mix,
+    built by the configuration's backbone module."""
+    return backbones.load(config).port_configs(config, traffic)
 
 
 @dataclass
@@ -133,10 +120,12 @@ class NoiseStep:
 
     def __call__(self, pp, vp, raw, proprio, lt, lm, vt, hist, hist_len,
                  generator=None):
-        state = self.gen.get_state()
-        noise = torch.randn(self.shape, generator=self.gen,
-                            dtype=torch.float32,
-                            device=self.device) * self.noise_std
+        from cover_vla_tpu_torch.utils import monitor
+        with monitor.span("bench.noise"):
+            state = self.gen.get_state()
+            noise = torch.randn(self.shape, generator=self.gen,
+                                dtype=torch.float32,
+                                device=self.device) * self.noise_std
         res = self.step(pp, vp, raw, proprio, lt, lm, vt, hist, hist_len,
                         noise=noise)
         self.log.append(dict(raw=raw, proprio=proprio, lang_tokens=lt,
@@ -196,8 +185,10 @@ class Cohort:
         self.current = b
 
     def _step_envs(self, actions):
-        for e, env in enumerate(self.envs):
-            self.obs[e], _ = env.step(actions[e])
+        from cover_vla_tpu_torch.utils import monitor
+        with monitor.span("bench.env_step"):
+            for e, env in enumerate(self.envs):
+                self.obs[e], _ = env.step(actions[e])
         self.tick += 1
 
     def finish(self) -> Boundary:
@@ -279,9 +270,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
     from cover_vla_tpu_torch.engine.batched_engine import BatchedCoVerEngine
     from cover_vla_tpu_torch.engine.verified_step import (
         make_verified_step_batched)
-    from cover_vla_tpu_torch.models import pi0, verifier
+    from cover_vla_tpu_torch.models import verifier
     from cover_vla_tpu_torch.models.params import ParamTree
     from cover_vla_tpu_torch.ops import quant
+    from cover_vla_tpu_torch.utils import monitor
 
     dev = torch.device(device)
     on_cuda = dev.type == "cuda"
@@ -291,7 +283,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats(dev)
     cfg, traffic = cell.config, cell.traffic
-    pcfg, vcfg, ccfg, members = port_configs(cfg, traffic)
+    bb = backbones.load(cfg)
+    pcfg, vcfg, ccfg, members = bb.port_configs(cfg, traffic)
     E, K, N = (traffic["episodes_per_cohort"], traffic["n_rephrases"],
                traffic["n_samples"])
     chunk = pcfg.chunk_size
@@ -301,15 +294,15 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         "rephrases"]
 
     # weights: the benchmark's, in the program's layout
-    meta = {"policy": pi0.init_pi0(0, pcfg, device="meta"),
+    meta = {"policy": bb.policy_meta(pcfg),
             "verifier": verifier.init_verifier(0, vcfg, members,
                                                device="meta")}
-    wts = weights.make(meta, seed, dev)
+    wts = weights.make(meta, seed, dev, bb)
     del meta
     ptree, vtree = ParamTree(wts["policy"]), ParamTree(wts["verifier"])
     w8a8 = cfg["gemm_route"] == "w8a8" or control == "program_w8a8"
     if w8a8:
-        ptree = quant.quantize_pi0_policy(ptree)
+        ptree = bb.quantize(ptree)
         vtree = quant.quantize_verifier(vtree)
 
     step = make_verified_step_batched(pcfg, vcfg, ccfg, stats, device=dev)
@@ -321,7 +314,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
                        ccfg.noise_std, dev, log)
         engine = BatchedCoVerEngine(
             ptree, vtree, pcfg, vcfg, ccfg, num_episodes=E, stats=stats,
-            policy_tokenizer=HashTokenizer(pcfg.paligemma.vocab_size),
+            policy_tokenizer=HashTokenizer(bb.prompt_vocab(cfg["policy"])),
             verifier_tokenizer=HashTokenizer(vcfg.text.vocab_size,
                                              add_bos=False),
             rephrases=rephrases, step_fn=ns, device=dev)
@@ -335,17 +328,21 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
     pipe = Pipeline(cohorts)
     pipe.run(turns=WARM_BOUNDARIES * len(cohorts))
 
+    # a traced run records the program's spans over the profiled
+    # sub-window and the window, and no other run does
     trace_summary = None
-    if traced:
-        trace_summary = _profile(pipe, dev)
-        pipe.run(turns=len(cohorts))
+    with (monitor.recording() if traced else contextlib.nullcontext()):
+        if traced:
+            trace_summary = _profile(pipe, dev, bb.KERNELS)
+            pipe.run(turns=len(cohorts))
 
-    # the window opens and closes on a resolved boundary
-    first = pipe.run(turns=1)[-1]
-    opened = first.t_resolved
-    setup_s = opened - t_start
-    window = pipe.run(until=opened + seconds)
-    closed = window[-1].t_resolved
+        # the window opens and closes on a resolved boundary
+        first = pipe.run(turns=1)[-1]
+        opened = first.t_resolved
+        setup_s = opened - t_start
+        window = pipe.run(until=opened + seconds)
+        closed = window[-1].t_resolved
+    spans = monitor.drain() if traced else []
     timeline = _timeline(first, window)
     _sync(dev)
     peak = torch.cuda.max_memory_allocated(dev) if on_cuda else 0
@@ -362,7 +359,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
 
     ctx = {"setup_s": setup_s, "window_s": closed - opened,
            "window": window, "E": E, "K": K, "N": N, "chunk": chunk,
-           "config": cfg, "trace": trace_summary,
+           "config": cfg, "trace": trace_summary, "spans": spans,
+           "opened": opened, "closed": closed,
            "device_name": (torch.cuda.get_device_name(dev) if on_cuda
                            else "cpu")}
     if trace_summary is not None:
@@ -388,8 +386,9 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
     if trace_summary is not None:
         device_info["busy_s"] = trace_summary["busy_s"]
         device_info["window_s"] = trace_summary["window_s"]
-        breakdown = {"device_ops": trace_summary["device_ops"],
-                     "idle_gaps": trace_summary["idle_gaps"]}
+        breakdown = {k: trace_summary[k] for k in (
+            "device_ops", "idle_gaps", "device_by_span",
+            "idle_gaps_by_span")}
     return RunOutput(correct=correct, attempted=len(window) * E,
                      failed=failed, metrics=metrics, device=device_info,
                      compared=compared, breakdown=breakdown, answers=answers,
@@ -413,7 +412,7 @@ def _timeline(first, window) -> str:
             + f"; step_async {1e3 * np.mean(enq):.1f} ms a boundary")
 
 
-def _profile(pipe, dev) -> dict:
+def _profile(pipe, dev, kernels) -> dict:
     """Profile TRACE_HALF_CYCLES boundaries from a drained device: their
     device work and resolutions fall inside the profiled sub-window. The
     host's operators are traced too (tracing the device alone costs more
@@ -430,7 +429,8 @@ def _profile(pipe, dev) -> dict:
         window_s = time.perf_counter() - t0
     for b in traced:
         b.traced = True
-    return trace_mod.summarize(_exported(prof), window_s, len(traced))
+    return trace_mod.summarize(_exported(prof), window_s, len(traced),
+                               kernels)
 
 
 def _exported(prof) -> dict:
@@ -448,19 +448,19 @@ def _exported(prof) -> dict:
 
 
 def kernel_work(traced, boundaries, cfg, rephrases, k, n) -> dict:
-    """(bytes, FLOPs) of K1, K2, K3 over the traced boundaries, from the
-    cell's shapes and the prompts' valid tokens as the reference's
-    tokenizer counts them."""
+    """(bytes, FLOPs, launches) of K2 and of the backbone's kernels over
+    the traced boundaries, from the cell's shapes and the prompts' valid
+    tokens as the reference's tokenizer counts them."""
     from coverbench import reference
+    bb = backbones.load(cfg)
     pol, ver = cfg["policy"], cfg["verifier"]
-    pg, ex, pv = pol["paligemma"], pol["expert"], pol["vision"]
-    n_img = (pv["image_size"] // pv["patch_size"]) ** 2
-    p_len = n_img + pol["tokenizer_max_length"]
-    work = {"K1": [0.0, 0.0, 0], "K2": [0.0, 0.0, 0], "K3": [0.0, 0.0, 0]}
+    pv = pol["vision"]
+    n_img = yardstick.num_patches(pv)
+    work = {name: [0.0, 0.0, 0] for name in ("K2", *bb.KERNELS)}
 
-    def add(name, w, launches):
-        work[name][0] += w[0] * launches
-        work[name][1] += w[1] * launches
+    def add(name, nbytes, flops, launches):
+        work[name][0] += nbytes * launches
+        work[name][1] += flops * launches
         work[name][2] += launches
 
     for b in traced:
@@ -473,22 +473,16 @@ def kernel_work(traced, boundaries, cfg, rephrases, k, n) -> dict:
                 cfg["cover"]["max_history"])
             for p in prompts:
                 _, m = reference.tokenize(p, pol["tokenizer_max_length"],
-                                          pg["vocab_size"], True)
+                                          bb.prompt_vocab(pol), True)
                 rows.append(n_img + int(m.sum()))
-        add("K1", yardstick.k1_work(rows, n, 1 + pol["chunk_size"],
-                                    ex["num_heads"], ex["num_kv_heads"],
-                                    ex["head_dim"], p_len),
-            ex["depth"] * pol["num_denoise_steps"])
-        add("K3", yardstick.k3_work(rows, p_len, pg["num_heads"],
-                                    pg["num_kv_heads"], pg["head_dim"]),
-            pg["depth"])
+        for name, w in bb.kernel_work(pol, rows, n).items():
+            add(name, *w)
         vv, vt = ver["vision"], ver["text"]
-        for tower, seq in ((pv, n_img),
-                           (vv, (vv["image_size"] // vv["patch_size"]) ** 2),
+        for tower, seq in ((pv, n_img), (vv, yardstick.num_patches(vv)),
                            (vt, vt["context_length"])):
-            add("K2", yardstick.k2_work(e_count, seq, tower["num_heads"],
-                                        tower["width"] // tower["num_heads"]),
-                tower["depth"])
+            add("K2", *yardstick.k2_work(
+                e_count, seq, tower["num_heads"],
+                tower["width"] // tower["num_heads"]), tower["depth"])
     return work
 
 

@@ -10,7 +10,6 @@ def read(ctx):
     cfg = ctx["config"]
     if ctx["device_name"] not in yardstick.PEAK_FLOPS:
         return None
-    flops = yardstick.analytic_flops(cfg["policy"], cfg["verifier"],
-                                     ctx["K"], ctx["N"], ctx["E"])
+    flops = yardstick.analytic_flops(cfg, ctx["K"], ctx["N"], ctx["E"])
     rate = len(ctx["window"]) / ctx["window_s"]
     return 100.0 * flops * rate / cfg["peak_flops"]

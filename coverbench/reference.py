@@ -24,8 +24,16 @@ int8 route adds (PERF.md).
 `quant_levels` selects the w8a8 route: None is none; 127 rounds every
 quantized GEMM's activations (per token) and weights (per output channel)
 to the int8 grid, 7 to the int4 grid (the control of a w8a8
-configuration). The quantized GEMMs are the two Gemma stacks' seven
-matmuls and the block matmuls of both vision towers.
+configuration). The quantized GEMMs are the policy backbone's (for
+Gemma, its two stacks' seven matmuls) and the block matmuls of both vision
+towers.
+
+What depends on the policy's backbone (its prompt embedding, prefill and
+action expert) lives in the configuration's backbone module
+(`coverbench/backbones/<backbone>.py`), which this module calls between
+its own stages: images, the towers, the state and time embeddings, the
+Euler loop, decoding, the verifier and the selection are the same for
+every backbone.
 
 The prefix is computed on each prompt's tokens padded to the longest
 prompt of the episode, not to the tokenizer's 72: padding is masked.
@@ -290,28 +298,8 @@ def vit(wts, cfg, img, exact_gelu, num):
 
 
 # ---------------------------------------------------------------------------
-# π0: prefix, prefill, flow decode
+# π0: prefix, flow decode (the backbone's layers in its module)
 # ---------------------------------------------------------------------------
-
-
-def _gemma_qkv(lw, cfg, h, pos, num):
-    x = num.r(rms_norm(h, lw["input_ln"]))
-    lead = x.shape[:-1]
-    q = num.mm(x, lw["q"], True).reshape(*lead, cfg["num_heads"],
-                                          cfg["head_dim"])
-    k = num.mm(x, lw["k"], True).reshape(*lead, cfg["num_kv_heads"],
-                                          cfg["head_dim"])
-    v = num.mm(x, lw["v"], True).reshape(*lead, cfg["num_kv_heads"],
-                                          cfg["head_dim"])
-    return num.r(rope(q, pos)), num.r(rope(k, pos)), v
-
-
-def _gemma_rest(lw, h, attn, num):
-    h = num.r(h + num.mm(num.r(attn), lw["o"], True))
-    y = num.r(rms_norm(h, lw["post_ln"]))
-    g = num.r(F.gelu(num.mm(y, lw["gate"], True), approximate="tanh"))
-    g = num.r(g * num.mm(y, lw["up"], True))
-    return num.r(h + num.mm(g, lw["down"], True))
 
 
 def time_embedding(t: float, dim: int, lo: float, hi: float, dev):
@@ -346,48 +334,41 @@ def _lin(p, x):
     return x @ p["kernel"].float() + p["bias"].float()
 
 
-def propose(pw, cfg, stats, raw, proprio, prompts, noise, num, dev):
+def propose(pw, cfg, stats, raw, proprio, prompts, noise, num, dev, bb):
     """The K x N candidates of one episode.
 
     pw: policy weights; cfg: the configuration's `policy` group; stats:
     {"action"|"proprio": {"p01", "p99"}}; prompts: K texts; noise fp32
-    [K, N, chunk, max_action_dim]. -> normalised actions [K * N, chunk, 7]."""
-    pg, ex, vc = cfg["paligemma"], cfg["expert"], cfg["vision"]
+    [K, N, chunk, max_action_dim]; bb: the configuration's backbone module
+    (its embedding, prefill and expert layers). -> normalised actions
+    [K * N, chunk, 7]."""
+    vc = cfg["vision"]
     k_prompts, n = noise.shape[:2]
     chunk = cfg["chunk_size"]
     f32 = torch.float32
 
-    # prefix: image tokens, then each prompt's valid tokens; the scalings
-    # by sqrt(width) in the stored precision
+    # prefix: image tokens, then each prompt's valid tokens
     img = policy_image(raw, vc["image_size"], dev)
     tokens, _ = vit(pw["vision"], vc, img, False, num)
-    root = math.sqrt(pg["width"])
-    root_s = num.r(torch.tensor(root, device=dev))
-    img_emb = num.r(num.r(_lin(pw["mm_proj"], tokens) / root) * root_s)
-    toks = [tokenize(p, cfg["tokenizer_max_length"], pg["vocab_size"], True)
+    toks = [tokenize(p, cfg["tokenizer_max_length"],
+                     bb.prompt_vocab(cfg), True)
             for p in prompts]
     n_lang = [int(m.sum()) for _, m in toks]
-    n_img = img_emb.shape[0]
+    img_emb, txt_emb = bb.embed(
+        pw, cfg, _lin(pw["mm_proj"], tokens),
+        [torch.from_numpy(t[:n_lang[i]]).to(dev)
+         for i, (t, _) in enumerate(toks)], num)
+    n_img, width = img_emb.shape
     p_max = n_img + max(n_lang)
-    emb = torch.zeros((k_prompts, p_max, pg["width"]), dtype=f32, device=dev)
+    emb = torch.zeros((k_prompts, p_max, width), dtype=f32, device=dev)
     valid = torch.zeros((k_prompts, p_max), dtype=torch.bool, device=dev)
-    for i, (t, _) in enumerate(toks):
-        ids = torch.from_numpy(t[:n_lang[i]]).to(dev)
+    for i in range(k_prompts):
         emb[i, :n_img] = img_emb
-        emb[i, n_img:n_img + n_lang[i]] = num.r(
-            pw["paligemma"]["embed"][ids].float() * root_s)
+        emb[i, n_img:n_img + n_lang[i]] = txt_emb[i]
         valid[i, :n_img + n_lang[i]] = True
     pos = torch.arange(p_max, device=dev).expand(k_prompts, p_max)
     mask = valid[:, :, None] & valid[:, None, :]
-
-    # prefill: the per-layer keys and values of the valid prefix
-    cache = []
-    h = emb
-    for i in range(pg["depth"]):
-        lw = layer(pw["paligemma"]["layers"], i)
-        q, k, v = _gemma_qkv(lw, pg, h, pos, num)
-        cache.append((k, v))
-        h = _gemma_rest(lw, h, attention(q, k, v, mask), num)
+    cache = bb.prefill(pw, cfg, emb, pos, mask, num)
 
     # suffix: [state | chunk actions], positions after each prompt's prefix
     ap01 = torch.tensor(stats["action"]["p01"], dtype=f32, device=dev)
@@ -418,19 +399,8 @@ def propose(pw, cfg, stats, raw, proprio, prompts, noise, num, dev):
         x = torch.cat([a_emb, t_emb.expand_as(a_emb)], dim=-1)
         x = _lin(pw["time_mlp_out"], F.silu(_lin(pw["time_mlp_in"], x)))
         h = num.r(torch.cat([state_emb.expand(x.shape[0], 1, w), x], dim=1))
-        for i in range(ex["depth"]):
-            lw = layer(pw["expert"]["layers"], i)
-            q, k, v = _gemma_qkv(lw, ex, h, s_pos, num)
-            kp, vp = cache[i]
-            kp = kp[:, None].expand(k_prompts, n, *kp.shape[1:]).reshape(
-                k_prompts * n, *kp.shape[1:])
-            vp = vp[:, None].expand(k_prompts, n, *vp.shape[1:]).reshape(
-                k_prompts * n, *vp.shape[1:])
-            attn = attention(q, torch.cat([kp, k], 1), torch.cat([vp, v], 1),
-                             key_mask, store=num.r)
-            h = _gemma_rest(lw, h, attn, num)
-        h = num.r(rms_norm(h, pw["expert"]["final_norm"]))[:, -chunk:]
-        return _lin(pw["action_out_proj"], h)
+        h = bb.expert(pw, cfg, h, s_pos, cache, key_mask, k_prompts, n, num)
+        return _lin(pw["action_out_proj"], h[:, -chunk:])
 
     steps = cfg["num_denoise_steps"]
     dt = -1.0 / steps
@@ -598,10 +568,12 @@ def episode(weights, cfg, stats, raw, proprio, prompts, task, history,
     """The reference's candidates and scores of one episode.
     -> dict of float32 CPU tensors: actions [K * N, chunk, 7] (normalised),
     exec, verif (same shape) and scores [K * N]."""
+    from coverbench import backbones
     num = Numerics(cfg["dtype"], quant_levels)
     with torch.no_grad():
         actions, ap01, ap99 = propose(weights["policy"], cfg["policy"], stats,
-                                      raw, proprio, prompts, noise, num, dev)
+                                      raw, proprio, prompts, noise, num, dev,
+                                      backbones.load(cfg))
         exec_, verif = decode(actions, ap01, ap99)
         traj = trajectories(verif, history, history_len,
                             cfg["cover"]["max_history"])

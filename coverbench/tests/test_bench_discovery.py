@@ -7,12 +7,22 @@ import re
 
 import pytest
 
-from coverbench import harness
+from coverbench import backbones, harness
 from coverbench.run import metric_readers, result_line
 from coverbench.harness import RunOutput
 
 ROOT = harness.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+# the metrics of the program's spans and counters: (unit, source, layer)
+SPAN_METRICS = {
+    "prefix_ms_per_boundary": ("ms", "device_trace", "step"),
+    "denoise_ms_per_boundary": ("ms", "device_trace", "step"),
+    "verify_ms_per_boundary": ("ms", "device_trace", "step"),
+    "tokenize_ms_per_boundary": ("ms", "program_span", "engine"),
+    "h2d_copies_per_boundary": ("count", "program_counter", "engine"),
+    "h2d_wait_ms_per_boundary": ("ms", "program_counter", "engine"),
+    "resolve_wait_ms_per_boundary": ("ms", "program_counter", "engine"),
+}
 
 
 def bench():
@@ -40,8 +50,25 @@ def test_contract_keys_and_names():
         assert m["moves"] == "verified_actions_per_s"
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
+    per_layer = {m["name"]: m for m in b["per_layer"]}
+    for name, (unit, source, layer) in SPAN_METRICS.items():
+        m = per_layer[name]
+        assert (m["unit"], m["source"], m["layer"], m["better"]) == (
+            unit, source, layer, "lower")
+        assert "workloads" not in m        # read in every cell
     for w in b["workloads"]:
         assert w["chips"] == 1 and len(w["why"]) <= 200
+    # a backbone's own kernel is read only in the cells whose backbone
+    # runs it, so that a cell of another backbone owes no reading of it
+    kernels = {}
+    for w in b["workloads"]:
+        cfg = harness.load_cell(w["name"]).config
+        kernels[w["name"]] = set(backbones.load(cfg).KERNELS)
+    for m in b["per_layer"]:
+        kernel = m["name"].upper().removesuffix("_ROOFLINE")
+        if any(kernel in ks for ks in kernels.values()):
+            assert set(m["workloads"]) <= {
+                w for w, ks in kernels.items() if kernel in ks}
     for c in b["configs"]:
         assert c["reduced"] == [] and c["file"].startswith("coverbench/")
     assert os.path.getsize(os.path.join(ROOT, "BENCHMARK.json")) < 65536
@@ -66,6 +93,8 @@ def test_cell_found_by_name(workload):
     readers = metric_readers([m["name"] for m in cell.end_to_end
                               + cell.per_layer])
     assert all(callable(r) for r in readers.values())
+    assert backbones.load(cell.config).__name__ == \
+        "coverbench.backbones." + cell.config["backbone"]
     pcfg, vcfg, ccfg, members = harness.port_configs(cell.config,
                                                      cell.traffic)
     assert pcfg.attention_impl == "cuda" and pcfg.decode_attn_impl == "cuda"

@@ -6,6 +6,7 @@ from types import SimpleNamespace
 import pytest
 
 from coverbench import harness, trace, yardstick
+from coverbench.backbones import gemma
 from coverbench.metrics import (chunk_ms_p90, enqueue_ms,
                                 gemm_ms_per_boundary,
                                 glue_ms_per_boundary, k1_roofline,
@@ -93,7 +94,8 @@ def synthetic_trace():
 
 
 def test_trace_summary_two_streams():
-    s = trace.summarize(synthetic_trace(), window_s=500e-6, boundaries=2)
+    s = trace.summarize(synthetic_trace(), window_s=500e-6, boundaries=2,
+                        kernels=gemma.KERNELS)
     assert s["busy_s"] == pytest.approx(310e-6)
     cats = s["by_category"]
     assert cats["gemm_bf16"] == {"us": 100.0, "launches": 1}
@@ -118,13 +120,13 @@ def test_trace_summary_two_streams():
 
 
 def test_rooflines_from_shapes():
-    s = trace.summarize(synthetic_trace(), window_s=500e-6, boundaries=2)
+    s = trace.summarize(synthetic_trace(), window_s=500e-6, boundaries=2,
+                        kernels=gemma.KERNELS)
     dev = "NVIDIA H100 80GB HBM3"
     hbm, peak = yardstick.PEAK_HBM_BYTES[dev], yardstick.PEAK_FLOPS[dev]
-    k1 = yardstick.k1_work([300, 280], n=5, s=5, hq=8, hkv=1, d=256,
-                           p_len=328)
+    k1 = gemma.k1_work([300, 280], n=5, s=5, hq=8, hkv=1, d=256, p_len=328)
     k2 = yardstick.k2_work(b=16, s=576, h=16, d=64)
-    k3 = yardstick.k3_work([300, 280], p_len=328, hq=8, hkv=1, d=256)
+    k3 = gemma.k3_work([300, 280], p_len=328, hq=8, hkv=1, d=256)
     work = {"K1": [k1[0], k1[1], 1], "K2": [k2[0], k2[1], 1],
             "K3": [k3[0], k3[1], 1]}
     ctx = {"trace": s, "kernel_work": work, "device_name": dev}
@@ -149,7 +151,7 @@ def test_step_mfu():
     window = [object()] * 10
     ctx = {"config": cfg, "K": 8, "N": 5, "E": 16, "window": window,
            "window_s": 5.0, "device_name": "NVIDIA H100 80GB HBM3"}
-    flops = yardstick.analytic_flops(cfg["policy"], cfg["verifier"], 8, 5, 16)
+    flops = yardstick.analytic_flops(cfg, 8, 5, 16)
     assert flops == pytest.approx(200.0158e12, rel=1e-5)
     assert step_mfu.read(ctx) == pytest.approx(100 * flops * 2 / 989e12)
     assert step_mfu.read(dict(ctx, device_name="cpu")) is None

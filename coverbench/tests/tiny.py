@@ -1,5 +1,6 @@
 """A cell at tiny widths for the CPU tests: the configuration files'
-structure with the program's tiny test sizes, and a small traffic mix."""
+structure with the program's tiny test sizes, and a small traffic mix;
+one episode's inputs and the weights for the reference at those sizes."""
 
 from __future__ import annotations
 
@@ -7,7 +8,9 @@ import copy
 import json
 import os
 
-from coverbench import harness
+import torch
+
+from coverbench import fake_env, harness, weights
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,3 +55,34 @@ def tiny_cell(route: str = "bf16", e: int = 4, n: int = 2, k: int = 2,
         end_to_end=[{"name": "verified_actions_per_s", "unit": "actions/s"},
                     {"name": "setup_s", "unit": "s"}],
         per_layer=[], chips=1)
+
+
+def episode_inputs(cfg, cell, seed=3):
+    """One episode's inputs, as the comparison hands them to the
+    reference."""
+    pol = cfg["policy"]
+    k, n = cell.traffic["n_rephrases"], cell.traffic["n_samples"]
+    env = fake_env.FakeWidowXEnv(fake_env.ID_TASKS[1])
+    obs = env.reset(seed)
+    task = env.instruction
+    gen = torch.Generator().manual_seed(seed)
+    hist = torch.randn(cfg["cover"]["max_history"], 7, generator=gen)
+    noise = torch.randn(k, n, pol["chunk_size"], pol["max_action_dim"],
+                        generator=gen)
+    stats = {"action": {"p01": [-0.05] * 6 + [0.0],
+                        "p99": [0.05] * 6 + [1.0]},
+             "proprio": {"p01": [-0.3] * 7, "p99": [0.3] * 7}}
+    return (stats, obs["image"], fake_env.proprio(obs["eef_pos"]),
+            [task, "pick up the thing", task][:k], task, hist.numpy(), 3,
+            noise)
+
+
+def make_weights(cfg, cell, bb, seed=5):
+    """The benchmark's weights for a configuration, in the program's tree
+    layout, on the CPU."""
+    from cover_vla_tpu_torch.models import verifier
+    pcfg, vcfg, _, members = bb.port_configs(cfg, cell.traffic)
+    meta = {"policy": bb.policy_meta(pcfg),
+            "verifier": verifier.init_verifier(0, vcfg, members,
+                                               device="meta")}
+    return weights.make(meta, seed, "cpu", bb)

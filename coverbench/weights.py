@@ -8,9 +8,10 @@ flat buffer per dtype filled with standard normals by a `torch.Generator`
 on the device, then each leaf scaled by a rule on its name and shape:
 matrices by fan_in ** -0.5, embedding tables by 0.02, norm weights and
 biases around their identity by 0.1 and 0.02, the verifier's readout
-queries by 1, and its two temperatures as published constants. Random
-norm weights and biases keep their arithmetic visible to the comparison,
-which zeros would hide.
+queries by 1, and its two temperatures as published constants; the
+policy's leaves by its backbone module's `weight_rule` first (Gemma's
+RMSNorm weights, 1 + w, by 0.1 around 0). Random norm weights and biases
+keep their arithmetic visible to the comparison, which zeros would hide.
 """
 
 from __future__ import annotations
@@ -38,10 +39,8 @@ def _rule(path, shape):
         return 0.0, 2.6592
     if name == "query":
         return 1.0, 0.0
-    if name in ("embed", "token_embed", "pos_emb"):
+    if name in ("token_embed", "pos_emb"):
         return 0.02, 0.0
-    if name in ("input_ln", "post_ln", "final_norm"):   # RMSNorm: 1 + w
-        return 0.1, 0.0
     if name == "scale":                                 # LayerNorm
         return 0.1, 1.0
     if name == "bias":
@@ -52,10 +51,11 @@ def _rule(path, shape):
                      f"{tuple(shape)} (parent {parent!r})")
 
 
-def make(trees: dict, seed: int, device) -> dict:
+def make(trees: dict, seed: int, device, backbone) -> dict:
     """{name: meta tree} -> {name: nested dict of device tensors}, the
     values drawn from `seed`. The leaves of one dtype are views of one
-    buffer."""
+    buffer. `backbone`: the configuration's backbone module, whose
+    `weight_rule` the leaves of the "policy" tree consult first."""
     by_dtype = {}
     for name, tree in trees.items():
         for path, meta in _leaves(tree):
@@ -74,7 +74,9 @@ def make(trees: dict, seed: int, device) -> dict:
         for path, meta in items:
             view = flat[at:at + meta.numel()].view(meta.shape)
             at += meta.numel()
-            std, offset = _rule(path, meta.shape)
+            rule = (backbone.weight_rule(path, meta.shape)
+                    if path[0] == "policy" else None)
+            std, offset = rule or _rule(path, meta.shape)
             view.mul_(std).add_(offset)
             node = out
             for key in path[:-1]:

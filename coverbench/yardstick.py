@@ -5,11 +5,12 @@ the ruler it is measured with:
 
 - `PEAK_*`, `merged_len`, `analytic_flops`: `cover_vla_tpu_torch/bench.py`
   (`PEAK_FLOPS`, `PEAK_INT8_OPS`, `PEAK_FP32_FLOPS`, `PEAK_HBM_BYTES`,
-  `_merged_len`, `_gemma_matmul_params`, `_vit_matmul_params`,
-  `_analytic_flops`) at commit 5a2a5d9;
-- `k1_work`, `k2_work`, `k3_work`: `cover_vla_tpu_torch/ops/kernel_work.py`
-  at 5a2a5d9, rewritten to take shapes and valid-token counts that the
-  harness made instead of the program's tensors;
+  `_merged_len`, `_vit_matmul_params`, `_analytic_flops`) at commit
+  5a2a5d9; the backbone's part of the FLOPs is its module's
+  `policy_flops` (`coverbench/backbones/`);
+- `k2_work`: `cover_vla_tpu_torch/ops/kernel_work.py` at 5a2a5d9,
+  rewritten to take shapes instead of the program's tensors (the
+  backbone's kernels' work is its module's `kernel_work`);
 - `category` and its tables: `scripts/torch_roofline.py` at 5a2a5d9 (the
   sub-window traces the host's operators too, so an int8 GEMM is
   categorised by the `aten::_int_mm` that launched it).
@@ -52,47 +53,32 @@ def merged_len(intervals) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _gemma_matmul_params(g: dict) -> float:
-    qd = g["num_heads"] * g["head_dim"]
-    kvd = g["num_kv_heads"] * g["head_dim"]
-    return g["depth"] * (g["width"] * qd + 2 * g["width"] * kvd
-                         + qd * g["width"] + 3 * g["width"] * g["mlp_dim"])
-
-
 def _vit_matmul_params(v: dict) -> float:
     return v["depth"] * (4 * v["width"] ** 2 + 2 * v["width"] * v["mlp_dim"])
 
 
-def _num_patches(v: dict) -> int:
+def num_patches(v: dict) -> int:
     return (v["image_size"] // v["patch_size"]) ** 2
 
 
-def analytic_flops(policy: dict, verifier: dict, k: int, n: int,
-                   episodes: int) -> float:
+def analytic_flops(config: dict, k: int, n: int, episodes: int) -> float:
     """Model FLOPs (2 a multiply-add) of one verified step over `episodes`
     episodes with K prompts and N candidates each: the policy's vision
-    tower, K prompt prefills through PaliGemma, the Euler-loop expert decode
-    over N candidates attending the cached prefix, the attention products,
-    and the verifier's towers."""
-    pg, ex, pv = policy["paligemma"], policy["expert"], policy["vision"]
-    p_len = _num_patches(pv) + policy["tokenizer_max_length"]
-    s_len = 1 + policy["chunk_size"]
-    qd_pg = pg["num_heads"] * pg["head_dim"]
-    qd_ex = ex["num_heads"] * ex["head_dim"]
-
-    vision = 2 * _vit_matmul_params(pv) * _num_patches(pv)
-    prefill = 2 * _gemma_matmul_params(pg) * k * p_len
-    prefill += 2 * 2 * pg["depth"] * k * p_len * p_len * qd_pg
-    dec_tokens = policy["num_denoise_steps"] * k * n * s_len
-    decode = 2 * _gemma_matmul_params(ex) * dec_tokens
-    decode += 2 * 2 * ex["depth"] * dec_tokens * (p_len + s_len) * qd_ex
+    tower, its backbone's K prompt prefills and Euler-loop decode over N
+    candidates (the backbone's `policy_flops`), and the verifier's
+    towers."""
+    from coverbench import backbones
+    policy, verifier = config["policy"], config["verifier"]
+    pv = policy["vision"]
+    vision = 2 * _vit_matmul_params(pv) * num_patches(pv)
+    policy_part = backbones.load(config).policy_flops(policy, k, n)
 
     vv, vt = verifier["vision"], verifier["text"]
-    v_patches = _num_patches(vv)
+    v_patches = num_patches(vv)
     ver = 2 * _vit_matmul_params(vv) * v_patches
     ver += 2 * 2 * vv["depth"] * v_patches ** 2 * vv["width"]
     ver += 2 * _vit_matmul_params(vt) * vt["context_length"]
-    return episodes * (vision + prefill + decode + ver)
+    return episodes * (vision + policy_part + ver)
 
 
 # ---------------------------------------------------------------------------
@@ -102,48 +88,29 @@ def analytic_flops(policy: dict, verifier: dict, k: int, n: int,
 # ---------------------------------------------------------------------------
 
 
-def k1_work(rows_valid_prefix, n: int, s: int, hq: int, hkv: int, d: int,
-            p_len: int):
-    """K1 `shared_prefix_gqa` over B = len(rows_valid_prefix) prefix rows,
-    each with N candidates of S suffix tokens: q [B, N, S, Hq, D], k/v
-    suffix [B, N, S, Hkv, D], k/v prefix [B, P, Hkv, D], the prefix pad
-    mask bool [B, P] and the suffix mask bool [B, S, S]; every candidate's
-    rows attend the row's valid prefix keys and its own suffix."""
-    b = len(rows_valid_prefix)
-    q = b * n * s * hq * d * BF16
-    nbytes = (2 * q + 2 * b * n * s * hkv * d * BF16
-              + 2 * b * p_len * hkv * d * BF16 + b * p_len + b * s * s)
-    keys = sum(rows_valid_prefix) + b * s
-    return float(nbytes), float(4 * n * s * hq * d * keys)
-
-
 def k2_work(b: int, s: int, h: int, d: int):
     """K2 `mha_dense`: q/k/v [B, S, H, D] bf16, every query over every key."""
     qkv = b * s * h * d * BF16
     return float(4 * qkv), float(4 * b * h * s * s * d)
 
 
-def k3_work(rows_valid, p_len: int, hq: int, hkv: int, d: int):
-    """K3 `prefix_gqa`: q [B, P, Hq, D], k/v [B, P, Hkv, D], mask bool
-    [B, P, P]; each row's valid tokens attend each other (the prefix is
-    bidirectional over its valid tokens)."""
-    b = len(rows_valid)
-    q = b * p_len * hq * d * BF16
-    nbytes = 2 * q + 2 * b * p_len * hkv * d * BF16 + b * p_len * p_len
-    pairs = sum(v * v for v in rows_valid)
-    return float(nbytes), float(4 * hq * d * pairs)
-
-
 # ---------------------------------------------------------------------------
 # Categories of device events
 # ---------------------------------------------------------------------------
 
-# the wgmma bodies' symbols as a trace names them:
-#   void (anonymous namespace)::decode_wgmma_kernel<256>(...DecodeParams)
+# the wgmma flash body's symbol as a trace names it (K2 with its EXACT
+# flag off; a backbone's `KERNELS` name its own uses of it):
 #   void (anonymous namespace)::flash_wgmma_kernel<64, 3, false>(...WgParams)
-# (the template's last argument is K3's EXACT flag)
-K1_SYMBOL = "decode_wgmma_kernel<"
 K23_SYMBOL = "flash_wgmma_kernel<"
+
+
+def flash_exact(name: str):
+    """The EXACT flag (the template's last argument) of a flash body's
+    symbol; None for any other symbol."""
+    if K23_SYMBOL not in name:
+        return None
+    args = name[name.index(K23_SYMBOL) + len(K23_SYMBOL):].split(">")[0]
+    return args.replace(" ", "").endswith(",true")
 
 GEMM_OPS = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
             "aten::mv", "aten::addmv", "aten::dot", "aten::_int_mm"}
@@ -178,18 +145,20 @@ GLUE_CATEGORIES = ("elementwise", "copy_memset", "reduction",
                    "softmax_norm", "index")
 
 
-def category(ev: dict, op) -> str:
+def category(ev: dict, op, kernels: dict) -> str:
     """The category of a device event; `op` is the CPU operator joined to
-    it through `External id` (None for K1-K3, copies without one, ...)."""
+    it through `External id` (None for K1-K3, copies without one, ...);
+    `kernels`: the backbone's {kernel: predicate on the symbol}, consulted
+    before the generic rules."""
     name = ev.get("name", "")
     low = name.lower()
     if ev.get("cat") in ("gpu_memcpy", "gpu_memset"):
         return "copy_memset"
-    if K1_SYMBOL in name:
-        return "K1"
-    if K23_SYMBOL in name:
-        args = name[name.index(K23_SYMBOL) + len(K23_SYMBOL):].split(">")[0]
-        return "K3" if args.replace(" ", "").endswith(",true") else "K2"
+    for kernel, match in kernels.items():
+        if match(name):
+            return kernel
+    if flash_exact(name) is False:
+        return "K2"
     op_name = op["name"] if op else ""
     if op_name == "aten::_int_mm" or any(s in low for s in INT8_NAMES):
         return "gemm_int8"
