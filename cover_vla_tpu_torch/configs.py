@@ -7,6 +7,7 @@ one package describes the same model in the other.
   - PaliGemma-3B language model + SigLIP so400m vision tower
   - Gemma 300M action expert
   - pi0 flow-matching policy config
+  - Kimi-VL-A3B's MLA + MoE language model, as an alternative pi0 backbone
   - SigLIP2 ViT-L/16-384 verifier backbone + trainable heads
 
 Attention backends are "eager" (plain PyTorch, fp32 scores) or "cuda"
@@ -43,6 +44,56 @@ class GemmaConfig:
     @property
     def qkv_dim(self) -> int:
         return self.num_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class MlaMoeConfig:
+    """DeepSeek-V3-shaped decoder (RMSNorm w * x / rms(x) + multi-head
+    latent attention + SwiGLU feed-forwards, sigmoid-routed experts after
+    the leading dense layers), as Kimi-VL-A3B's language model and an
+    action expert that mirrors its attention geometry. The names of the
+    published config.json in brackets.
+
+    Attention (MLA, arXiv 2405.04434): q = x W_q per head [qk_nope_dim |
+    qk_rope_dim]; [c_kv | k_pe] = x W_kv_a, c_kv RMS-normed, k_pe one rope
+    key shared by every head; per head [k_nope | v] = c_kv W_kv_b. Routing
+    (`noaux_tc`, arXiv 2412.19437): sigmoid scores of an fp32 router, the
+    top `experts_per_token` chosen on score + correction bias, weighted by
+    their scores normalised to sum 1 and times `routed_scaling`, plus the
+    shared experts as one SwiGLU of num_shared_experts * moe_dim."""
+
+    width: int                      # hidden_size
+    depth: int                      # num_hidden_layers
+    num_heads: int                  # num_attention_heads
+    mlp_dim: int                    # intermediate_size (dense layers)
+    kv_lora_rank: int = 512         # kv_lora_rank (no q_lora_rank)
+    qk_nope_dim: int = 128          # qk_nope_head_dim
+    qk_rope_dim: int = 64           # qk_rope_head_dim
+    v_head_dim: int = 128           # v_head_dim
+    num_experts: int = 0            # n_routed_experts; 0 = every layer dense
+    experts_per_token: int = 6      # num_experts_per_tok
+    moe_dim: int = 1408             # moe_intermediate_size
+    num_shared_experts: int = 2     # n_shared_experts
+    first_dense: int = 1            # first_k_dense_replace
+    routed_scaling: float = 2.446   # routed_scaling_factor
+    vocab_size: int = 0             # 0 => no token embedding table
+    rope_theta: float = 800_000.0
+    rms_eps: float = 1e-5
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def num_dense(self) -> int:
+        """Layers with a dense SwiGLU (the leading ones)."""
+        return min(self.first_dense, self.depth) if self.num_experts \
+            else self.depth
+
+    @property
+    def num_moe(self) -> int:
+        return self.depth - self.num_dense
+
 
 
 @dataclass(frozen=True)
@@ -133,11 +184,14 @@ class Pi0Config:
     """pi0 flow-matching policy.
 
     CoVer uses chunk_size=4 / n_action_steps=4 and tokenizer_max_length=72;
-    upstream pi0 defaults are 50/50/48.
+    upstream pi0 defaults are 50/50/48. The VLM's language model
+    (`paligemma`) and the action expert are both Gemma stacks, or both
+    MLA + MoE stacks (`MlaMoeConfig`, `models/mla_moe.py`) of one
+    attention geometry.
     """
 
-    paligemma: GemmaConfig = PALIGEMMA_LM
-    expert: GemmaConfig = GEMMA_EXPERT
+    paligemma: GemmaConfig | MlaMoeConfig = PALIGEMMA_LM
+    expert: GemmaConfig | MlaMoeConfig = GEMMA_EXPERT
     vision: VitConfig = SIGLIP_SO400M
 
     chunk_size: int = 4
@@ -170,6 +224,23 @@ class Pi0Config:
     @property
     def suffix_len(self) -> int:
         return 1 + self.chunk_size  # state token + action tokens
+
+
+def tiny_kimi_pi0_config(chunk_size: int = 4,
+                         tokenizer_max_length: int = 8) -> Pi0Config:
+    """A miniature pi0 over an MLA + MoE backbone for unit tests: 3 layers
+    (one dense, two of 8 experts, top 3, 1 shared) and an MLA expert of
+    the backbone's attention geometry."""
+    mla = dict(num_heads=4, kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+               v_head_dim=16, rope_theta=10_000.0)
+    base = tiny_pi0_config(chunk_size, tokenizer_max_length)
+    return replace(
+        base,
+        paligemma=MlaMoeConfig(width=64, depth=3, mlp_dim=128, num_experts=8,
+                               experts_per_token=3, moe_dim=32,
+                               num_shared_experts=1, first_dense=1,
+                               routed_scaling=2.446, vocab_size=1024, **mla),
+        expert=MlaMoeConfig(width=32, depth=3, mlp_dim=64, **mla))
 
 
 def tiny_pi0_config(chunk_size: int = 4, tokenizer_max_length: int = 8) -> Pi0Config:

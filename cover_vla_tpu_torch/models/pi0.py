@@ -9,6 +9,13 @@ shared prefill + Euler integration over N candidates.
     through `compute_dtype`, and multiplied by sqrt(width) in that dtype;
     language embeddings are scaled by sqrt(width) in the embedding dtype.
 
+The VLM's language model and the expert are Gemma stacks
+(`models/gemma.py`) or, when the config's `paligemma` is an
+`MlaMoeConfig`, MLA + MoE stacks (`models/mla_moe.py`: Kimi-VL-A3B's
+language model, a latent prefix cache, absorbed decode, no embedding
+scale). The MLA + MoE backbone serves inference only: the training loss
+refuses it.
+
 Numerics: fp32 projections (state/action/time MLP, action_out_proj) in
 true fp32, bf16 transformer, fp32 RoPE/softmax.
 """
@@ -20,9 +27,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from cover_vla_tpu_torch.configs import Pi0Config
+from cover_vla_tpu_torch.configs import MlaMoeConfig, Pi0Config
 from cover_vla_tpu_torch.device import resolve_device
-from cover_vla_tpu_torch.models import gemma, siglip
+from cover_vla_tpu_torch.models import gemma, mla_moe, siglip
 from cover_vla_tpu_torch.models.params import Init, ParamTree
 from cover_vla_tpu_torch.ops.masks import make_att_2d_masks, suffix_att_masks
 from cover_vla_tpu_torch.ops.sampling import (
@@ -36,16 +43,26 @@ def _linear(p, x: torch.Tensor) -> torch.Tensor:
     return x @ p["kernel"] + p["bias"]
 
 
+def _is_mla(cfg: Pi0Config) -> bool:
+    """Whether the policy's backbone is an MLA + MoE stack."""
+    if isinstance(cfg.paligemma, MlaMoeConfig) != \
+            isinstance(cfg.expert, MlaMoeConfig):
+        raise ValueError("the VLM backbone and the action expert must both "
+                         "be Gemma or both MLA + MoE stacks")
+    return isinstance(cfg.paligemma, MlaMoeConfig)
+
+
 def init_pi0(seed: int, cfg: Pi0Config, *, device=None) -> ParamTree:
     """Randomly initialised policy (the reference's shapes, dtypes and
     scales) on `device` (CUDA unless given)."""
     init = Init(seed, resolve_device(device))
     w = cfg.proj_width
+    init_stack = mla_moe.init_mla_moe if _is_mla(cfg) else gemma.init_gemma
     return ParamTree({
         "vision": siglip.init_vit(init, cfg.vision),
         "mm_proj": init.linear(cfg.vision.width, cfg.paligemma.width),
-        "paligemma": gemma.init_gemma(init, cfg.paligemma),
-        "expert": gemma.init_gemma(init, cfg.expert),
+        "paligemma": init_stack(init, cfg.paligemma),
+        "expert": init_stack(init, cfg.expert),
         "state_proj": init.linear(cfg.max_state_dim, w),
         "action_in_proj": init.linear(cfg.max_action_dim, w),
         "action_out_proj": init.linear(w, cfg.max_action_dim),
@@ -83,17 +100,26 @@ def embed_prefix(params: ParamTree, cfg: Pi0Config, images: torch.Tensor,
         raise ValueError(f"{b} prompt rows do not split over {bi} image rows")
     flat = images.reshape(bi * n_img, *images.shape[2:])
     vit_out = siglip.vit_forward(params["vision"], cfg.vision, flat)
-    w_sqrt = cfg.paligemma.width ** 0.5
-    img_emb = _linear(params["mm_proj"], vit_out.tokens.float()) / w_sqrt
-    img_emb = img_emb.to(cdt) * torch.tensor(w_sqrt, dtype=cdt)
+    mla = _is_mla(cfg)
+    if mla:
+        # no embedding scale: the projected image tokens and the token
+        # embeddings enter the stack as they are
+        img_emb = _linear(params["mm_proj"], vit_out.tokens.float()).to(cdt)
+    else:
+        w_sqrt = cfg.paligemma.width ** 0.5
+        img_emb = _linear(params["mm_proj"], vit_out.tokens.float()) / w_sqrt
+        img_emb = img_emb.to(cdt) * torch.tensor(w_sqrt, dtype=cdt)
     img_emb = img_emb.reshape(bi, n_img * cfg.vision.num_patches, -1)
     if b > bi:
         img_emb = img_emb.repeat_interleave(b // bi, dim=0)
         img_masks = img_masks.repeat_interleave(b // bi, dim=0)
 
-    lang_emb = gemma.embed_tokens(params["paligemma"], lang_tokens)
-    lang_emb = lang_emb * torch.tensor(cfg.paligemma.width ** 0.5,
-                                       dtype=lang_emb.dtype)
+    if mla:
+        lang_emb = mla_moe.embed_tokens(params["paligemma"], lang_tokens)
+    else:
+        lang_emb = gemma.embed_tokens(params["paligemma"], lang_tokens)
+        lang_emb = lang_emb * torch.tensor(cfg.paligemma.width ** 0.5,
+                                           dtype=lang_emb.dtype)
     embs = torch.cat([img_emb, lang_emb.to(cdt)], dim=1)
     img_pad = img_masks.repeat_interleave(cfg.vision.num_patches, dim=1)
     pad = torch.cat([img_pad, lang_masks.bool()], dim=1)
@@ -151,6 +177,11 @@ def flow_matching_loss(params: ParamTree, cfg: Pi0Config, images, img_masks,
     `noise` ([B, chunk, A]) and `time` ([B]) are drawn from `generator`
     (noise first) unless given. remat: recompute the transformer layers
     in the backward pass (`gemma.fused_forward`)."""
+    if _is_mla(cfg):
+        raise NotImplementedError(
+            "flow_matching_loss: π0 training supports the Gemma backbone "
+            "only; this policy's backbone is an MLA + MoE stack "
+            "(inference only)")
     b = actions.shape[0]
     dev = actions.device
     if noise is None:
@@ -187,7 +218,9 @@ def flow_matching_loss(params: ParamTree, cfg: Pi0Config, images, img_masks,
 
 
 class PrefixCache(NamedTuple):
-    cache: dict               # {"k","v"}: [L, B, P, Hkv, D]
+    # Gemma {"k","v"}: [L, B, P, Hkv, D]; MLA + MoE {"kv": [L, B, P, r + dr]
+    # latents and rope keys, "kv_b": the backbone's up projections}
+    cache: dict
     pad_masks: torch.Tensor   # bool[B, P]
     hidden: Optional[torch.Tensor] = None
 
@@ -199,7 +232,8 @@ def compute_prefix_cache(params: ParamTree, cfg: Pi0Config, images,
                           lang_masks)
     mask2d = make_att_2d_masks(prefix.pad_masks, prefix.att_masks)
     positions = torch.cumsum(prefix.pad_masks.to(torch.int32), dim=1) - 1
-    hidden, cache = gemma.prefill(params["paligemma"], cfg.paligemma,
+    stack = mla_moe if _is_mla(cfg) else gemma
+    hidden, cache = stack.prefill(params["paligemma"], cfg.paligemma,
                                   prefix.embs, positions, mask2d,
                                   return_hidden=return_hidden,
                                   attn_impl=cfg.attention_impl)
@@ -224,10 +258,15 @@ def denoise_step(params: ParamTree, cfg: Pi0Config, state: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """One velocity evaluation. x_t: [B, N, chunk, A]; time: scalar."""
     suffix_embs = embed_suffix(params, cfg, state, x_t, time)
-    out = gemma.decode_shared_prefix(
-        params["expert"], cfg.expert, suffix_embs, positions,
-        prefix.cache, prefix.pad_masks, suffix_mask,
-        attn_impl=cfg.decode_attn_impl or cfg.attention_impl)
+    if _is_mla(cfg):
+        out = mla_moe.decode_shared_prefix(
+            params["expert"], cfg.expert, suffix_embs, positions,
+            prefix.cache, prefix.pad_masks, suffix_mask)
+    else:
+        out = gemma.decode_shared_prefix(
+            params["expert"], cfg.expert, suffix_embs, positions,
+            prefix.cache, prefix.pad_masks, suffix_mask,
+            attn_impl=cfg.decode_attn_impl or cfg.attention_impl)
     out = out[..., -cfg.chunk_size:, :].float()
     return _linear(params["action_out_proj"], out)
 

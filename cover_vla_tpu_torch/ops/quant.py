@@ -270,7 +270,12 @@ def quantize_pi0_policy(params, vision: bool = True) -> ParamTree:
     """Serving-time transform of a full pi0 tree: int8-quantize the two
     Gemma stacks (PaliGemma LM and action expert) and, by default, the
     SigLIP vision tower's block matmuls. The fp32 action/state
-    projections stay fp32; untouched subtrees are shared."""
+    projections stay fp32; untouched subtrees are shared. A policy whose
+    backbone is an MLA + MoE stack has no int8 route and is refused."""
+    if "kv_a" in params["paligemma"]["layers"]:    # an MLA + MoE stack
+        raise NotImplementedError(
+            "quantize_pi0_policy: the w8a8 route covers Gemma stacks only; "
+            "this policy's backbone is an MLA + MoE stack")
     out = _children(params)
     out["paligemma"] = quantize_gemma_stack(params["paligemma"])
     out["expert"] = quantize_gemma_stack(params["expert"])

@@ -139,7 +139,8 @@ class SpanRecord:
     (`time.perf_counter`) at its start and end (`t1` None while open);
     `counts`, the transfers made while it was the innermost open span:
     `h2d_copies`, `h2d_bytes`, `h2d_wait_s`, `d2h_copies`, `d2h_bytes`,
-    `d2h_wait_s` (the wait: the host clock around the copy)."""
+    `d2h_wait_s` (the wait: the host clock around the copy), and the
+    quantities `count` added under it."""
 
     __slots__ = ("name", "sid", "parent", "boundary", "t0", "t1", "counts")
 
@@ -233,6 +234,18 @@ def _count(kind: str, nbytes: int, wait_s: float) -> None:
     c[kind + "_copies"] = c.get(kind + "_copies", 0) + 1
     c[kind + "_bytes"] = c.get(kind + "_bytes", 0) + nbytes
     c[kind + "_wait_s"] = c.get(kind + "_wait_s", 0.0) + wait_s
+
+
+def count(key: str, n) -> None:
+    """With recording on, add `n` to the counter `key` of the innermost
+    open span (a quantity the host knows, such as the rows a product ran
+    over); nothing otherwise."""
+    if not _recording:
+        return
+    stack = _stack()
+    if stack:
+        c = stack[-1].counts
+        c[key] = c.get(key, 0) + n
 
 
 def to_device(x, device, dtype=None) -> torch.Tensor:
